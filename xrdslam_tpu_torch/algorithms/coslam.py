@@ -1,0 +1,239 @@
+"""Co-SLAM: joint coordinate + parametric encoding SLAM, per frame on the device.
+
+Counterpart of ``xrdslam_tpu/algorithms/coslam.py`` (its per-frame path;
+the fused multi-frame super-step is not ported). The structure is the
+reference package's:
+
+  * the global keyframe ray store is a fixed-capacity device table
+    ``kf_rays [max_kf, R, 7]`` (dirs, rgb, depth) with a host-side count;
+  * keyframe poses are rows of ``[max_kf, 3]`` axis-angle/translation
+    tensors, gathered per ray, so mapping pose gradients arrive as
+    scatter-adds;
+  * the oldest keyframe's pose is fixed by detaching row 0;
+  * the current-frame pixel batch of a mapping call has a power-of-two
+    capacity and a mask over the live count (``_cur_cap``).
+
+The optimization loops are Python loops of eager device work: no host
+sync inside them; a step's result reaches the host once, when the pipeline
+reads the pose.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple, Type
+
+import numpy as np
+import torch
+
+from ..common.camera import Camera
+from ..common.frame import Frame
+from ..engine.optimizers import GroupOptimizers
+from ..models.joint_encoding import JointEncoding, JointEncodingConfig
+from ..ops import lie, lie_np
+from ..ops.sampling import camera_ray_dirs, sample_pixels
+from .base import Algorithm, AlgorithmConfig
+
+MODEL_GROUPS = ("embed_fn", "decoder")
+
+
+@dataclass
+class CoSLAMConfig(AlgorithmConfig):
+    _target: Type = field(default_factory=lambda: CoSLAM)
+    model: JointEncodingConfig = field(default_factory=JointEncodingConfig)
+    rays_to_save_ratio: float = 0.05
+    tracking_Wedge: int = 20
+    tracking_Hedge: int = 20
+    mapping_sample: int = 2048
+    min_sample_pixels: int = 100
+    tracking_sample: int = 1024
+    mapping_bound: List[List[float]] = field(default_factory=lambda: [[-3.5, 3], [-3, 3], [-3, 3]])
+    max_keyframes: int = 512  # capacity of the keyframe ray table
+    seed: int = 0
+
+
+class CoSLAM(Algorithm):
+    def __init__(self, config: CoSLAMConfig, camera: Camera, device: torch.device) -> None:
+        super().__init__(config, camera, device)
+        self.config: CoSLAMConfig = config
+        self.bounding_box = np.asarray(config.mapping_bound, np.float32)
+        # weights are drawn on the CPU so that a seed gives the same initial
+        # model on every device; the run's draws come from a device generator
+        init_gen = torch.Generator().manual_seed(config.seed)
+        self.model = JointEncoding(config.model, camera, self.bounding_box, generator=init_gen).to(self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
+
+        self._opt_cfgs = {name: g["optimizer"] for name, g in config.optimizers.items()}
+        self.model_opt = GroupOptimizers({g: self._opt_cfgs[g] for g in MODEL_GROUPS})
+        self.model_opt_state = self.model_opt.init(self.model.param_groups())
+
+        self.num_rays_to_save = int(camera.width * camera.height * config.rays_to_save_ratio)
+        self.max_kf = config.max_keyframes
+        self.kf_rays = torch.zeros((self.max_kf, self.num_rays_to_save, 7), device=self.device)
+        self.kf_pose_t = torch.zeros((self.max_kf, 3), device=self.device)
+        self.kf_pose_r = torch.zeros((self.max_kf, 3), device=self.device)
+        self.kf_count = 0
+        self._dirs = camera_ray_dirs(camera, self.device)  # [H, W, 3] camera-frame dirs
+
+    def _pose(self, v: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+
+    # ------------------------------------------------------------------
+    # tracking
+    # ------------------------------------------------------------------
+    def track_step(self, rgb: torch.Tensor, depth: torch.Tensor, t0: torch.Tensor, r0: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``tracking_n_iters`` Adam steps on the pose against the frozen map.
+        Returns the pose of lowest loss seen (t, r) and that loss."""
+        cfg = self.config
+        H, W = self.camera.height, self.camera.width
+        names = ("tracking_pose_r", "tracking_pose_t")
+        scheds = {n: self._tracking_lr_schedule(self._opt_cfgs[n].lr) for n in names}
+        opt = GroupOptimizers({n: self._opt_cfgs[n] for n in names},
+                              schedules={n: s for n, s in scheds.items() if s is not None})
+        r = r0.clone().requires_grad_(True)
+        t = t0.clone().requires_grad_(True)
+        params = {"tracking_pose_r": [r], "tracking_pose_t": [t]}
+        state = opt.init(params)
+        best_loss = torch.full((), 1e10, device=self.device)
+        best_t, best_r = t0.clone(), r0.clone()
+        for _ in range(cfg.tracking_n_iters):
+            u, v = sample_pixels(cfg.tracking_sample, H, W, cfg.tracking_Hedge, cfg.tracking_Wedge,
+                                 self.generator, self.device)
+            rays_d = self._dirs[v, u] @ lie.axis_angle_to_matrix(r).T
+            rays_o = t.expand(rays_d.shape)
+            # the table is detached: tracking's backward computes no dtable
+            loss, _ = self.model.get_loss(rays_o, rays_d, rgb[v, u], depth[v, u][:, None], None, False, False,
+                                          generator=self.generator, detach_table=True)
+            g_r, g_t = torch.autograd.grad(loss, [r, t])
+            with torch.no_grad():
+                loss = loss.detach()
+                better = loss < best_loss
+                best_loss = torch.where(better, loss, best_loss)
+                best_t = torch.where(better, t, best_t)
+                best_r = torch.where(better, r, best_r)
+            g_r, g_t = self._finite_guard(loss, [g_r, g_t])
+            opt.update({"tracking_pose_r": [g_r], "tracking_pose_t": [g_t]}, state, params)
+        return best_t, best_r, best_loss
+
+    # ------------------------------------------------------------------
+    # mapping
+    # ------------------------------------------------------------------
+    def _cur_cap(self) -> int:
+        """Power-of-two capacity for the live current-frame pixel count."""
+        cfg = self.config
+        need = max(cfg.mapping_sample // max(self.kf_count, 1), cfg.min_sample_pixels)
+        cap = 128
+        while cap < need:
+            cap *= 2
+        return min(cap, cfg.mapping_sample)
+
+    def map_step(self, rgb: torch.Tensor, depth: torch.Tensor, cur_t: torch.Tensor, cur_r: torch.Tensor,
+                 n_iters: int, first: bool, cur_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``n_iters`` joint steps on the map and (after the first frame) on
+        all keyframe poses and the current pose. The model groups' Adam state
+        persists across calls; the pose groups' starts fresh. Returns the
+        current pose (t, r)."""
+        cfg = self.config
+        H, W = self.camera.height, self.camera.width
+        R = self.num_rays_to_save
+        groups = {g: self._opt_cfgs[g] for g in MODEL_GROUPS}
+        params = self.model.param_groups()
+        opt_state = dict(self.model_opt_state)
+        if not first:
+            kf_r = self.kf_pose_r.clone().requires_grad_(True)
+            kf_t = self.kf_pose_t.clone().requires_grad_(True)
+            cur_r = cur_r.clone().requires_grad_(True)
+            cur_t = cur_t.clone().requires_grad_(True)
+            params["mapping_pose_r"] = [kf_r, cur_r]
+            params["mapping_pose_t"] = [kf_t, cur_t]
+            for g in ("mapping_pose_r", "mapping_pose_t"):
+                groups[g] = self._opt_cfgs[g]
+        opt = GroupOptimizers(groups)
+        for g in params:
+            if g not in opt_state:
+                opt_state[g] = opt.init_group(g, params[g])
+        flat = [p for g in params for p in params[g]]
+
+        kf_rays_flat = self.kf_rays.reshape(-1, 7)
+        n_kf_rays = max(self.kf_count * R, 1)
+        # the reference samples max(mapping_sample // kf_count, min_sample_pixels)
+        # current-frame pixels; the batch holds cur_cap of them, the rest masked
+        cur_n = cur_cap if first else min(max(cfg.mapping_sample // max(self.kf_count, 1), cfg.min_sample_pixels), cur_cap)
+        cur_mask = (torch.arange(cur_cap, device=self.device) < cur_n).float()
+        kf_mask = torch.full((cfg.mapping_sample,), float(self.kf_count > 0), device=self.device)
+        for _ in range(n_iters):
+            u, v = sample_pixels(cur_cap, H, W, generator=self.generator, device=self.device)
+            cur_td = depth[v, u][:, None]
+            cur_ts = rgb[v, u]
+            rays_d = self._dirs[v, u] @ lie.axis_angle_to_matrix(cur_r).T
+            rays_o = cur_t.expand(rays_d.shape)
+            if first:
+                loss, _ = self.model.get_loss(rays_o, rays_d, cur_ts, cur_td, cur_mask, True, True,
+                                              generator=self.generator)
+            else:
+                idx = torch.randint(0, n_kf_rays, (cfg.mapping_sample,), generator=self.generator, device=self.device)
+                rays = kf_rays_flat[idx]
+                fi = idx // R
+                # the oldest keyframe's pose is fixed
+                kr = torch.cat([kf_r[:1].detach(), kf_r[1:]], 0)
+                kt = torch.cat([kf_t[:1].detach(), kf_t[1:]], 0)
+                rays_d_kf = torch.einsum("nij,nj->ni", lie.axis_angle_to_matrix(kr[fi]), rays[:, :3])
+                loss, _ = self.model.get_loss(
+                    torch.cat([kt[fi], rays_o], 0), torch.cat([rays_d_kf, rays_d], 0),
+                    torch.cat([rays[:, 3:6], cur_ts], 0), torch.cat([rays[:, 6:7], cur_td], 0),
+                    torch.cat([kf_mask, cur_mask], 0), True, False, generator=self.generator)
+            grads = self._finite_guard(loss.detach(), list(torch.autograd.grad(loss, flat)))
+            grouped: Dict[str, List[torch.Tensor]] = {}
+            for g in params:
+                grouped[g], grads = grads[:len(params[g])], grads[len(params[g]):]
+            opt.update(grouped, opt_state, params)
+
+        self.model_opt_state = {g: opt_state[g] for g in MODEL_GROUPS}
+        if not first:
+            self.kf_pose_r, self.kf_pose_t = kf_r.detach(), kf_t.detach()
+        return cur_t.detach(), cur_r.detach()
+
+    def add_kf(self, rgb: torch.Tensor, depth: torch.Tensor, slot: int) -> None:
+        """Save R random rays of a frame into keyframe table row ``slot``."""
+        H, W = self.camera.height, self.camera.width
+        idx = torch.randint(0, H * W, (self.num_rays_to_save,), generator=self.generator, device=self.device)
+        self.kf_rays[slot] = torch.cat(
+            [self._dirs.reshape(-1, 3)[idx], rgb.reshape(-1, 3)[idx], depth.reshape(-1)[idx][:, None]], -1)
+
+    # ------------------------------------------------------------------
+    # host API (called by the pipeline)
+    # ------------------------------------------------------------------
+    def dispatch_tracking(self, cur_frame: Frame) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        if not self.is_initialized():
+            return None
+        best_t, best_r, _ = self.track_step(cur_frame.rgb_dev(self.device), cur_frame.depth_dev(self.device),
+                                            self._pose(cur_frame.t), self._pose(cur_frame.r))
+        return best_t, best_r
+
+    def finish_tracking(self, handle) -> Optional[np.ndarray]:
+        if handle is None:
+            return None
+        bt, br = (h.cpu().numpy() for h in handle)
+        return lie_np.pose_vec_to_matrix(bt, br, rot_rep="axis_angle")
+
+    def do_mapping(self, cur_frame: Frame) -> None:
+        first = not self.is_initialized()
+        cfg = self.config
+        cur_t, cur_r = self.map_step(
+            cur_frame.rgb_dev(self.device), cur_frame.depth_dev(self.device),
+            self._pose(cur_frame.t), self._pose(cur_frame.r),
+            cfg.mapping_first_n_iters if first else cfg.mapping_n_iters, first,
+            cfg.mapping_sample if first else self._cur_cap())
+        cur_frame.t, cur_frame.r = cur_t.cpu().numpy(), cur_r.cpu().numpy()
+        if first:
+            self.set_initialized()
+
+    def add_keyframe(self, keyframe: Frame) -> None:
+        if self.kf_count >= self.max_kf:
+            raise RuntimeError(f"keyframe capacity {self.max_kf} exceeded; raise max_keyframes")
+        slot = self.kf_count
+        self.add_kf(keyframe.rgb_dev(self.device), keyframe.depth_dev(self.device), slot)
+        self.kf_pose_t[slot] = self._pose(keyframe.t)
+        self.kf_pose_r[slot] = self._pose(keyframe.r)
+        self.kf_count += 1
+        self.keyframe_fids.append(keyframe.fid)

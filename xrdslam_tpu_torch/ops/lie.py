@@ -1,0 +1,105 @@
+"""SO(3) conversions on tensors: axis-angle <-> rotation matrix.
+
+Counterpart of the parts of ``xrdslam_tpu/ops/lie.py`` that Co-SLAM uses.
+Small-angle neighbourhoods use Taylor expansions selected with
+``torch.where``; the unselected branch is evaluated too, so every branch
+keeps its argument away from 0 (``maximum(theta2, _EPS)``) and no NaN
+reaches the gradient. Quaternions are ``(w, x, y, z)``, scalar first.
+"""
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-8
+
+
+def _sinc(theta2: torch.Tensor) -> torch.Tensor:
+    """sin(t)/t as a function of t^2, Taylor-guarded near 0."""
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS))
+    return torch.where(theta2 < 1e-8, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+
+
+def _cosc(theta2: torch.Tensor) -> torch.Tensor:
+    """(1 - cos(t))/t^2 as a function of t^2, Taylor-guarded near 0."""
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS))
+    return torch.where(theta2 < 1e-8, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / torch.clamp(theta2, min=_EPS))
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., 3, 3] cross-product matrix."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack([
+        torch.stack([zero, -z, y], -1),
+        torch.stack([z, zero, -x], -1),
+        torch.stack([-y, x, zero], -1),
+    ], -2)
+
+
+def _skew_squared(r: torch.Tensor) -> torch.Tensor:
+    """K(r)^2 = r r^T - |r|^2 I, elementwise."""
+    theta2 = torch.sum(r * r, dim=-1)
+    outer = r[..., :, None] * r[..., None, :]
+    eye = torch.eye(3, dtype=r.dtype, device=r.device).expand(outer.shape)
+    return outer - theta2[..., None, None] * eye
+
+
+def axis_angle_to_matrix(r: torch.Tensor) -> torch.Tensor:
+    """Rodrigues formula. [..., 3] -> [..., 3, 3]."""
+    theta2 = torch.sum(r * r, dim=-1)
+    K = skew(r)
+    KK = _skew_squared(r)
+    a = _sinc(theta2)[..., None, None]
+    b = _cosc(theta2)[..., None, None]
+    eye = torch.eye(3, dtype=r.dtype, device=r.device).expand(K.shape)
+    return eye + a * K + b * KK
+
+
+def matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 4] (w,x,y,z), w >= 0.
+
+    Branch-free Shepperd's method: all four candidate quaternions, the one
+    with the largest pivot selected per element.
+    """
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    pw = 1.0 + tr
+    px = 1.0 + m00 - m11 - m22
+    py = 1.0 - m00 + m11 - m22
+    pz = 1.0 - m00 - m11 + m22
+    best = torch.argmax(torch.stack([pw, px, py, pz], -1), dim=-1)
+
+    sw = torch.sqrt(torch.clamp(pw, min=_EPS)) * 2.0  # = 4w
+    sx = torch.sqrt(torch.clamp(px, min=_EPS)) * 2.0  # = 4x
+    sy = torch.sqrt(torch.clamp(py, min=_EPS)) * 2.0  # = 4y
+    sz = torch.sqrt(torch.clamp(pz, min=_EPS)) * 2.0  # = 4z
+    qs = torch.stack([
+        torch.stack([0.25 * sw, (m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw], -1),
+        torch.stack([(m21 - m12) / sx, 0.25 * sx, (m01 + m10) / sx, (m02 + m20) / sx], -1),
+        torch.stack([(m02 - m20) / sy, (m01 + m10) / sy, 0.25 * sy, (m12 + m21) / sy], -1),
+        torch.stack([(m10 - m01) / sz, (m02 + m20) / sz, (m12 + m21) / sz, 0.25 * sz], -1),
+    ], -2)  # [..., 4 candidates, 4]
+    q = torch.gather(qs, -2, best[..., None, None].expand(*best.shape, 1, 4))[..., 0, :]
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=_EPS)
+
+
+def quaternion_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (w,x,y,z) -> [..., 3]."""
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=_EPS)
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    xyz = q[..., 1:]
+    sin_half = torch.linalg.norm(xyz, dim=-1)
+    half = torch.atan2(sin_half, w)
+    # theta/sin(theta/2), guarded near zero: -> 2 + theta^2/12 ...
+    scale = torch.where(sin_half < 1e-6, 2.0 + (2.0 / 3.0) * sin_half * sin_half,
+                        2.0 * half / torch.clamp(sin_half, min=_EPS))
+    return xyz * scale[..., None]
+
+
+def matrix_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
+    """SO(3) log map. [..., 3, 3] -> [..., 3]."""
+    return quaternion_to_axis_angle(matrix_to_quaternion(R))
