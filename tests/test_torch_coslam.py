@@ -38,6 +38,17 @@ from xrdslam_tpu_torch.pipeline.slam import SLAMPipelineConfig, resolve_device  
 from xrdslam_tpu_torch.utils.eval_ate import evaluate_ate  # noqa: E402
 from xrdslam_tpu_torch.utils.from_jax import params_from_jax  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """The suite runs in several worker processes; one torch thread each
+    keeps them from oversubscribing the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAM = dict(fx=50.0, fy=50.0, cx=29.5, cy=19.5, height=40, width=60)
 BOUND = np.array([[-6.0, 6.0]] * 3, np.float32)  # every sample of a 5 m ray from near the centre is inside
@@ -202,13 +213,13 @@ def test_synthetic_frames_and_upload_match_jax(scene):
 def test_tiny_run_through_the_cli(tmp_path):
     from xrdslam_tpu_torch.scripts.run import main
 
-    n = 10
+    n = 6  # two keyframes (frames 0 and 5), the fewest frames that make them
     runner = main([
         "co-slam", "--data-type", "synthetic", "--data", f"n_frames={n},height=40,width=60,scene=simple",
         "--out-dir", str(tmp_path), "--xrdslam.device", "cpu",
         "--xrdslam.algorithm.mapping-bound", "[[-2.2,2.2],[-2.2,2.2],[-2.2,2.2]]",
-        "--xrdslam.algorithm.mapping-first-n-iters", "60",
-        "--xrdslam.algorithm.tracking-sample", "256", "--xrdslam.algorithm.mapping-sample", "512",
+        "--xrdslam.algorithm.mapping-first-n-iters", "30",
+        "--xrdslam.algorithm.tracking-sample", "128", "--xrdslam.algorithm.mapping-sample", "256",
         "--xrdslam.algorithm.tracking-Hedge", "4", "--xrdslam.algorithm.tracking-Wedge", "4",
         "--xrdslam.algorithm.model.hashsize", "12", "--xrdslam.algorithm.model.n-levels", "8",
         "--xrdslam.algorithm.model.trainging-smooth-pts", "16",

@@ -21,6 +21,17 @@ torch = pytest.importorskip("torch")
 from xrdslam_tpu_torch.ops import encodings as tenc  # noqa: E402
 from xrdslam_tpu_torch.ops import hashgrid_fast as thf  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """The suite runs in several worker processes; one torch thread each
+    keeps them from oversubscribing the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 N = 600
 SPEC_ARGS = (6, 2, 10, 8, 100)  # 6 levels (dense and hashed), T = 2^10
 

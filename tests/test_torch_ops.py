@@ -16,6 +16,16 @@ from xrdslam_tpu_torch.ops import encodings as tenc, lie as tlie, losses as tlos
 from xrdslam_tpu_torch.ops import rendering as trend, sampling as tsamp  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """The suite runs in several worker processes; one torch thread each
+    keeps them from oversubscribing the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def T(a):
     return torch.tensor(np.asarray(a))
 

@@ -11,6 +11,17 @@ import jax.numpy as jnp  # noqa: E402
 from xrdslam_tpu.engine import optimizers as jopt  # noqa: E402
 from xrdslam_tpu_torch.engine import optimizers as topt  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """The suite runs in several worker processes; one torch thread each
+    keeps them from oversubscribing the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 SHAPES = {"accum": [(4, 3), (5,)], "decay": [(6, 2)], "plain": [(3,)]}
 
 

@@ -40,6 +40,7 @@ class AlgorithmConfig(InstantiateConfig):
     tracking_lr_decay: float = 1.0
     mapping_n_iters: int = 60
     mapping_first_n_iters: int = 200
+    mapping_window_size: int = 5
     rot_rep: str = "axis_angle"
     optimizers: Dict[str, Any] = field(default_factory=default_optimizers)
 
@@ -51,6 +52,7 @@ class Algorithm:
         self.device = torch.device(device)
         self.initialized = False
         self.gt_c2w_list: List[np.ndarray] = []
+        self.gt_c2w_list_ori: List[np.ndarray] = []
         self.estimate_c2w_list: List[np.ndarray] = []
         self.keyframe_fids: List[int] = []
         self._nonfinite_poses = 0
@@ -84,7 +86,10 @@ class Algorithm:
         return sched
 
     # -- host bookkeeping --------------------------------------------------
-    def add_framepose(self, c2w: np.ndarray, gt_c2w: np.ndarray) -> None:
+    def add_framepose(self, c2w: np.ndarray, gt_c2w: np.ndarray, gt_c2w_ori: np.ndarray) -> None:
+        """Record a frame's estimate, its ground truth in the run's frame
+        (relative to the first pose in relative-pose mode) and the original
+        ground truth."""
         c2w = np.asarray(c2w)
         if not np.isfinite(c2w).all():
             self._on_nonfinite_pose(len(self.estimate_c2w_list))
@@ -94,6 +99,7 @@ class Algorithm:
                 c2w = self.estimate_c2w_list[-1]
         self.estimate_c2w_list.append(c2w)
         self.gt_c2w_list.append(np.asarray(gt_c2w))
+        self.gt_c2w_list_ori.append(np.asarray(gt_c2w_ori))
 
     def _on_nonfinite_pose(self, idx: int) -> None:
         self._nonfinite_poses += 1

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, List
 
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR.parents[1] / "build" / "torch_kernels"
@@ -37,29 +37,73 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
 
 
-def build(name: str) -> Path:
-    """Compile ``<name>.cu`` unless a library of the same source exists."""
-    src = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
-    log = lib.with_suffix(".ptxas.txt")
-    if lib.exists():
-        BUILD_INFO[name] = {"seconds": 0.0, "ptxas": log.read_text() if log.exists() else ""}
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
-    log.write_text(proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": proc.stderr}
-    return lib
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile each ``<name>.cu`` whose library is missing, one ``nvcc``
+    process per source, all started together; name -> library path."""
+    libs: Dict[str, Path] = {}
+    running = {}
+    try:
+        for name in names:
+            src = SOURCE_DIR / f"{name}.cu"
+            digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+            lib = libs[name] = BUILD_DIR / f"lib{name}_{digest}.so"
+            log = lib.with_suffix(".ptxas.txt")
+            if lib.exists():
+                BUILD_INFO[name] = {"seconds": 0.0, "ptxas": log.read_text() if log.exists() else ""}
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            running[name] = (proc, src, tmp, lib, log, time.perf_counter())
+        for name, (proc, src, tmp, lib, log, t0) in running.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{out}\n{err}")
+            log.write_text(err)
+            os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
+            BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": err}
+    finally:
+        for proc, *_ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return libs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The bound library of ``<name>.cu``, built on first call."""
     if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build(name)))
+        _LIBS[name] = ctypes.CDLL(str(build_all([name])[name]))
     return _LIBS[name]
+
+
+def bind(name: str, signatures: Dict[str, List[type]]) -> ctypes.CDLL:
+    """The library of ``<name>.cu`` with ``argtypes`` set for each of its
+    functions (every one returns an int error code) and for
+    ``xr_cuda_error_string``."""
+    lib = load(name)
+    if not getattr(lib, "_xr_typed", False):
+        for fn, args in signatures.items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.xr_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.xr_cuda_error_string.restype = ctypes.c_char_p
+        lib._xr_typed = True
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise on a non-zero error code from a launch."""
+    if code != 0:
+        raise RuntimeError(f"{what} failed: {lib.xr_cuda_error_string(code).decode()} (cudaError {code})")
+
+
+def on_cpu(t, what: str) -> bool:
+    """True for a CPU tensor (the caller takes the plain twin), False for a
+    CUDA tensor (the caller launches the kernel); raises for any other."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda tensors, got {t.device}")
+    return False

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import kernels
 from .encodings import CORNER_OFFSETS, HashGridSpec, flat_rows, grid_corners
 
 LAUNCHES: Dict[str, int] = {"hashgrid_fwd": 0, "hashgrid_bwd_dx": 0, "hashgrid_bwd_dtable": 0}
@@ -89,19 +90,9 @@ _LEVEL_ARGS: Dict[HashGridSpec, Tuple[ctypes.Array, ctypes.Array]] = {}
 
 
 def _lib():
-    from ..kernels import load
-
-    lib = load("hashgrid")
-    if not getattr(lib, "_xr_typed", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.xr_hashgrid_fwd.argtypes = [p, p, p, ll, i, i, p, p, p]
-        lib.xr_hashgrid_fwd.restype = i
-        lib.xr_hashgrid_bwd.argtypes = [p, p, p, p, p, ll, i, i, p, p, p]
-        lib.xr_hashgrid_bwd.restype = i
-        lib.xr_cuda_error_string.argtypes = [i]
-        lib.xr_cuda_error_string.restype = ctypes.c_char_p
-        lib._xr_typed = True
-    return lib
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return kernels.bind("hashgrid", {"xr_hashgrid_fwd": [p, p, p, ll, i, i, p, p, p],
+                                     "xr_hashgrid_bwd": [p, p, p, p, p, ll, i, i, p, p, p]})
 
 
 def _level_args(spec: HashGridSpec):
@@ -109,11 +100,6 @@ def _level_args(spec: HashGridSpec):
         arr = ctypes.c_int * spec.n_levels
         _LEVEL_ARGS[spec] = (arr(*spec.resolutions), arr(*[int(d) for d in spec.dense]))
     return _LEVEL_ARGS[spec]
-
-
-def _check(lib, code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{what} failed: {lib.xr_cuda_error_string(code).decode()} (cudaError {code})")
 
 
 def _check_cuda_inputs(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec) -> None:
@@ -135,17 +121,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 8 == 0 else t.clone()
 
 
-def _on_cpu(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"hash-grid encoding runs on cpu or cuda tensors, got {x.device}")
-    return False
-
-
 def hashgrid_fwd(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
     """table [L, T, 2], x [N, 3] -> [N, L*2]: kernel on CUDA, twin on CPU."""
-    if _on_cpu(x):
+    if kernels.on_cpu(x, "hash-grid encoding"):
         return hashgrid_fwd_torch(table, x, spec)
     _check_cuda_inputs(table, x, spec)
     table = _aligned(table)
@@ -155,7 +133,7 @@ def hashgrid_fwd(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec) -> to
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.xr_hashgrid_fwd(table.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], spec.n_levels,
                                spec.log2_table_size, res, dense, stream)
-    _check(lib, code, "hashgrid_fwd")
+    kernels.check(lib, code, "hashgrid_fwd")
     LAUNCHES["hashgrid_fwd"] += 1
     return out
 
@@ -166,7 +144,7 @@ def hashgrid_bwd(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, spec: Ha
     """(dtable | None, dx | None) for upstream g [N, L*2]: kernel on CUDA,
     twin on CPU. A dtable that is not needed (tracking: the table is
     constant) costs neither its atomics nor its memset."""
-    if _on_cpu(x):
+    if kernels.on_cpu(x, "hash-grid encoding"):
         return hashgrid_bwd_torch(table, x, g, spec, need_dtable, need_dx)
     _check_cuda_inputs(table, x, spec)
     if g.shape != (x.shape[0], spec.out_dim) or g.dtype != torch.float32 or g.device != x.device:
@@ -182,7 +160,7 @@ def hashgrid_bwd(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, spec: Ha
     code = lib.xr_hashgrid_bwd(table.data_ptr(), x.data_ptr(), g.data_ptr(),
                                dx.data_ptr() if need_dx else None, dtable.data_ptr() if need_dtable else None,
                                x.shape[0], spec.n_levels, spec.log2_table_size, res, dense, stream)
-    _check(lib, code, "hashgrid_bwd")
+    kernels.check(lib, code, "hashgrid_bwd")
     LAUNCHES["hashgrid_bwd_dx"] += int(need_dx)
     LAUNCHES["hashgrid_bwd_dtable"] += int(need_dtable)
     return dtable, dx

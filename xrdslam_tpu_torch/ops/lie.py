@@ -1,6 +1,8 @@
-"""SO(3) conversions on tensors: axis-angle <-> rotation matrix.
+"""SO(3) and pose conversions on tensors, differentiable.
 
-Counterpart of the parts of ``xrdslam_tpu/ops/lie.py`` that Co-SLAM uses.
+Counterpart of the parts of ``xrdslam_tpu/ops/lie.py`` that Co-SLAM and
+SplaTAM use: axis-angle and quaternion rotations, pose vectors to 4x4
+matrices and rigid inverses.
 Small-angle neighbourhoods use Taylor expansions selected with
 ``torch.where``; the unselected branch is evaluated too, so every branch
 keeps its argument away from 0 (``maximum(theta2, _EPS)``) and no NaN
@@ -103,3 +105,39 @@ def quaternion_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
 def matrix_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
     """SO(3) log map. [..., 3, 3] -> [..., 3]."""
     return quaternion_to_axis_angle(matrix_to_quaternion(R))
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (w,x,y,z) -> [..., 3, 3]. Normalizes the input quaternion."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=_EPS)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def pose_vec_to_matrix(t: torch.Tensor, r: torch.Tensor, rot_rep: str = "axis_angle") -> torch.Tensor:
+    """(translation [..., 3], rotation [..., 3 | 4]) -> [..., 4, 4] c2w matrix."""
+    if rot_rep == "axis_angle":
+        R = axis_angle_to_matrix(r)
+    elif rot_rep == "quat":
+        R = quaternion_to_matrix(r)
+    else:
+        raise ValueError(f"unknown rot_rep {rot_rep}")
+    return torch.cat([torch.cat([R, t[..., :, None]], -1), _bottom_row(R)], -2)
+
+
+def pose_inverse(M: torch.Tensor) -> torch.Tensor:
+    """Invert [..., 4, 4] rigid transforms."""
+    Rt = M[..., :3, :3].transpose(-1, -2)
+    ti = -(Rt @ M[..., :3, 3:4])
+    return torch.cat([torch.cat([Rt, ti], -1), _bottom_row(Rt)], -2)
+
+
+def _bottom_row(R: torch.Tensor) -> torch.Tensor:
+    """[..., 1, 4] rows (0, 0, 0, 1) for a batch of [..., 3, 3] rotations."""
+    row = torch.zeros((*R.shape[:-2], 1, 4), dtype=R.dtype, device=R.device)
+    row[..., 0, 3] = 1.0
+    return row

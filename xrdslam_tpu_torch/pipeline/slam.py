@@ -1,9 +1,10 @@
 """Single-process SLAM pipeline: tracking and mapping alternate per frame.
 
 Counterpart of the per-frame path of ``xrdslam_tpu/pipeline/slam.py``:
-constant-velocity pose prediction, map_every / keyframe_every gating,
-final-frame forcing and the ``eval.tar`` trajectory
-archive. Mesh and render outputs come later, with the mesher.
+constant-velocity pose prediction, relative-pose mode with its initial
+offset, map_every / keyframe_every / lazy-start gating, final-frame
+forcing and the ``eval.tar`` trajectory archive. Mesh and render outputs
+(debug images, re-render metrics) come later.
 
 The run's device is ``SLAMPipelineConfig.device``; asking for CUDA on a
 machine without it raises, and nothing falls back to the CPU.
@@ -17,7 +18,7 @@ import pickle
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Type
+from typing import Dict, Iterator, List, Tuple, Type
 
 import numpy as np
 import torch
@@ -48,6 +49,10 @@ def resolve_device(name: str) -> torch.device:
 class TrackerConfig(InstantiateConfig):
     _target: Type = field(default_factory=lambda: object)
     map_every: int = 1
+    lazy_start: int = -1  # frames up to this index are all mapped
+    use_relative_pose: bool = False  # poses relative to the first frame's
+    save_debug_result: bool = False  # debug images: not ported yet, raises
+    init_pose_offset: float = 0.0  # added to the first pose's translation in relative-pose mode
 
 
 @dataclass
@@ -71,6 +76,8 @@ class SLAMPipeline:
         self.dataset = dataset
         self.out_dir = out_dir
         self.verbose = verbose
+        if config.tracker.save_debug_result:
+            raise NotImplementedError("debug image output is not ported yet (ROADMAP Queue 1)")
         self.device = resolve_device(config.device)
         self.camera = dataset.get_camera()
         self.algorithm: Algorithm = config.algorithm.setup(camera=self.camera, device=self.device)
@@ -104,8 +111,26 @@ class SLAMPipeline:
         pred[:3, :3] = u @ vt
         return pred
 
+    def _gt_transform(self, i: int, gt_c2w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(ground truth in the run's frame, original ground truth). In
+        relative-pose mode the first pose becomes the identity, shifted by
+        ``init_pose_offset``, and later poses follow it."""
+        cfg_t = self.config.tracker
+        gt_c2w_ori = gt_c2w.copy()
+        if cfg_t.use_relative_pose:
+            if i == 0:
+                self._first_pose_old = gt_c2w.copy()
+                gt_c2w = np.eye(4, dtype=np.float32)
+                gt_c2w[:3, 3] += cfg_t.init_pose_offset
+                self._first_pose_new = gt_c2w.copy()
+            else:
+                delta = np.linalg.inv(self._first_pose_old) @ gt_c2w
+                gt_c2w = (self._first_pose_new @ delta).astype(np.float32)
+        return gt_c2w, gt_c2w_ori
+
     def run(self) -> None:
         n = len(self.dataset)
+        self._first_pose_old = self._first_pose_new = None
         for i in range(n):
             self._frame_step(i, n)
         self._finish_run()
@@ -115,6 +140,7 @@ class SLAMPipeline:
         cfg_m = self.config.mapper
         algo = self.algorithm
         _, rgb, depth, gt_c2w = self.dataset[i]
+        gt_c2w, gt_c2w_ori = self._gt_transform(i, gt_c2w)
 
         t0 = time.time()
         init_pose = self.predict_current_pose(i, gt_c2w)
@@ -125,9 +151,10 @@ class SLAMPipeline:
             candidate = algo.finish_tracking(algo.dispatch_tracking(frame))
         if candidate is not None and algo.is_initialized():
             frame.set_pose(candidate)
-        algo.add_framepose(frame.get_pose(), gt_c2w)
+        algo.add_framepose(frame.get_pose(), gt_c2w, gt_c2w_ori)
 
-        if cfg_t.map_every != -1 and (i % cfg_t.map_every == 0 or frame.is_final_frame):
+        map_every = 1 if i <= cfg_t.lazy_start else cfg_t.map_every
+        if map_every != -1 and (i % map_every == 0 or frame.is_final_frame):
             with self.phase("mapping"):
                 algo.do_mapping(frame)
             algo.update_framepose(i, frame.get_pose())
@@ -147,14 +174,11 @@ class SLAMPipeline:
             json.dump(summary, f, indent=2)
 
     def save_eval_tar(self) -> None:
-        """Trajectory archive for evaluation (the reference package's keys;
-        without relative-pose mode the original ground truth is the ground
-        truth)."""
+        """Trajectory archive for evaluation (the reference package's keys)."""
         algo = self.algorithm
-        gt = [np.asarray(p) for p in algo.gt_c2w_list]
         data = {
-            "gt_c2w_list": gt,
-            "gt_c2w_list_ori": gt,
+            "gt_c2w_list": [np.asarray(p) for p in algo.gt_c2w_list],
+            "gt_c2w_list_ori": [np.asarray(p) for p in algo.gt_c2w_list_ori],
             "estimate_c2w_list": [np.asarray(p) for p in algo.estimate_c2w_list],
             "idx": len(algo.estimate_c2w_list) - 1,
         }

@@ -1,18 +1,23 @@
-"""Load the reference package's Co-SLAM parameters into the port's model.
+"""Load the reference package's parameters into the port.
 
-``params_from_jax`` takes the reference ``model_params`` tree with its
-leaves as numpy arrays (``{"embed_fn": {"table": [L,T,F]}, "decoder":
-{"sdf": {"w": [...]}, "color": {"w": [...]}}}``, each ``w`` ``[in, out]``)
-and copies it into a ``JointEncoding``. Linear weights are transposed to
+``gaussian_params_from_jax`` takes the reference SplaTAM ``params`` dict
+(``means3D``, ``rgb_colors``, ``unnorm_rotations``, ``logit_opacities``,
+``log_scales``) with numpy leaves, and optionally its ``dead`` mask and
+``count``, and returns the port's tensors. ``params_from_jax`` takes the
+reference Co-SLAM ``model_params`` tree with its leaves as numpy arrays
+(``{"embed_fn": {"table": [L,T,F]}, "decoder": {"sdf": {"w": [...]},
+"color": {"w": [...]}}}``, each ``w`` ``[in, out]``) and copies it into a
+``JointEncoding``. Linear weights are transposed to
 ``nn.Linear``'s ``[out, in]``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models.gaussian_splatting import GAUSS_GROUPS
 from ..models.joint_encoding import JointEncoding
 
 
@@ -33,3 +38,12 @@ def params_from_jax(np_tree: Dict[str, Any], model: JointEncoding) -> JointEncod
         for i, (layer, w) in enumerate(zip(net.layers, ws)):
             _copy(layer.weight, np.asarray(w).T, f"decoder.{name}.w[{i}]")
     return model
+
+
+def gaussian_params_from_jax(np_tree: Dict[str, Any], device="cpu", dead: Optional[Any] = None,
+                             count: Optional[Any] = None
+                             ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor], Optional[int]]:
+    """(params, dead as a bool tensor or None, count as an int or None)."""
+    params = {k: torch.tensor(np.asarray(np_tree[k], np.float32), device=device) for k in GAUSS_GROUPS}
+    dead_t = None if dead is None else torch.tensor(np.asarray(dead, bool), device=device)
+    return params, dead_t, None if count is None else int(np.asarray(count))
