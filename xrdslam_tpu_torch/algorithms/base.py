@@ -1,14 +1,15 @@
 """Algorithm base: host-side state around the tracking/mapping steps.
 
 Counterpart of ``xrdslam_tpu/algorithms/base.py`` without the multi-device
-helpers: the finite-gradient guard, the tracking lr schedule and the host
+helpers: the finite-gradient guard, the tracking lr schedule, the static
+mapping window (``window_slot_frame``, ``pad_window``) and the host
 bookkeeping (pose lists, keyframe ids).
 """
 from __future__ import annotations
 
 import sys
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Type
+from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
 import numpy as np
 import torch
@@ -84,6 +85,26 @@ class Algorithm:
             return lr0 * decay ** frac
 
         return sched
+
+    @staticmethod
+    def window_slot_frame(f: int, n_valid: int, n_slots: int) -> int:
+        """Static-window slot -> frame index, ``((f + 1) n_valid - 1) // n_slots``:
+        spreads ``n_slots`` ray slots over the ``n_valid`` real frames as
+        evenly as possible (the surplus to the newest), monotone, and always
+        maps the last slot to the current frame."""
+        return ((f + 1) * n_valid - 1) // n_slots
+
+    @staticmethod
+    def pad_window(images: torch.Tensor, poses: torch.Tensor, cur_img: torch.Tensor, cur_pose: torch.Tensor,
+                   pad_to: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pad window tensors to the static window size by repeating the
+        current frame (``cur_img`` [1, ...], ``cur_pose`` [P]); padded slots
+        are never read, since ``window_slot_frame`` stays below n_valid."""
+        pad = pad_to - images.shape[0]
+        if pad > 0:
+            images = torch.cat([images, cur_img.expand(pad, *cur_img.shape[1:])], 0)
+            poses = torch.cat([poses, cur_pose[None].expand(pad, -1)], 0)
+        return images, poses
 
     # -- host bookkeeping --------------------------------------------------
     def add_framepose(self, c2w: np.ndarray, gt_c2w: np.ndarray, gt_c2w_ori: np.ndarray) -> None:

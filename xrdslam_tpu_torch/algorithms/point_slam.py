@@ -1,0 +1,360 @@
+"""Point-SLAM: neural point cloud SLAM with density-driven growth, per frame.
+
+Counterpart of ``xrdslam_tpu/algorithms/point_slam.py`` (its per-frame
+path: ``dispatch_tracking`` / ``finish_tracking``, ``do_mapping``,
+``add_keyframe``, ``render_img``). The structure is the reference
+package's:
+
+  * before each mapping call, points grow from the current frame
+    (``add_points_from_frame``): pixels are picked at random, and three
+    points (at depth - r, d, d + r along the ray) are added for each whose
+    surface point has fewer than ``pointcloud_min_nn_num`` stored points
+    within its radius r; the host map is then uploaded again;
+  * radii are dynamic: a Sobel colour-gradient magnitude per pixel maps to
+    the add radius and the query radius (``cal_dynamic_radius``); the query
+    radius rides along as a fifth image channel (``_frame_rgbdr``);
+  * mapping fills a static window of ``mapping_window_size`` slots with
+    random keyframes plus the current frame (``window_slot_frame``,
+    ``pad_window``) and runs one loop of ``n_iters``: a geometry phase
+    (``mapping_geo_iter_ratio`` of them), then a colour phase, with the
+    phase learning rates of ``PointSLAMSchedulerConfig`` and one Adam state
+    carried across; the poses stay fixed (no bundle adjustment, as the
+    reference's default);
+  * tracking optimises the pose vector (translation and quaternion) for
+    ``tracking_n_iters`` iterations on random interior pixels and keeps
+    the pose of lowest loss.
+
+The optimization loops are Python loops of eager device work. Pixel
+samples come from a device ``torch.Generator``, point picks and window
+slots from a numpy ``Generator``; both are seeded from ``config.seed`` and
+give other numbers than the reference's ``jax.random`` (whose mapping keys
+also depend on Python's per-process ``hash(str)``). ``track_step`` and
+``map_step`` take pre-drawn samples, and ``add_points_from_frame`` a
+pre-drawn pick, so that a test can feed both packages the same draws.
+The reference's fused super-step and its TSDF mesh are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple, Type
+
+import numpy as np
+import torch
+
+from ..common.camera import Camera
+from ..common.frame import Frame
+from ..engine.optimizers import GroupOptimizers
+from ..engine.schedulers import PointSLAMSchedulerConfig
+from ..models.conv_onet_pointslam import ConvOnet2, ConvOnet2Config
+from ..ops import lie, lie_np
+from ..ops.point_table import PointMap
+from ..ops.sampling import camera_ray_dirs, sample_pixels
+from .base import Algorithm, AlgorithmConfig
+
+Samples = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclass
+class PointSLAMConfig(AlgorithmConfig):
+    """The reference's PointSLAMConfig, less what nothing in the port reads
+    (``mapping_BA``, which the reference leaves off and does not implement;
+    ``mesh_resolution``, for the TSDF mesh; ``map_chunk_iters``, which kept
+    each TPU program under its watchdog)."""
+
+    _target: Type = field(default_factory=lambda: PointSLAM)
+    model: ConvOnet2Config = field(default_factory=ConvOnet2Config)
+    mapping_sample: int = 5000
+    min_sample_pixels: int = 40
+    tracking_sample: int = 1500
+    ray_batch_size: int = 3000  # rays per chunk in render_img
+    tracking_Wedge: int = 100
+    tracking_Hedge: int = 100
+    mapping_geo_iter_ratio: float = 0.4
+    pixels_adding: int = 6000
+    # extra mapping rays and insertion pixels at the current frame's top
+    # colour-gradient pixels
+    mapping_pixels_based_on_color_grad: int = 0
+    max_keyframes: int = 64
+    seed: int = 0
+
+
+class PointSLAM(Algorithm):
+    config: PointSLAMConfig
+
+    def __init__(self, config: PointSLAMConfig, camera: Camera, device: torch.device) -> None:
+        super().__init__(config, camera, device)
+        # weights are drawn on the CPU so that a seed gives the same initial
+        # model on every device
+        init_gen = torch.Generator().manual_seed(config.seed)
+        self.model = ConvOnet2(config.model, camera, generator=init_gen).to(self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
+        self.rng = np.random.default_rng(config.seed)
+        self.point_map = PointMap(max_points=config.model.max_points, cell_size=2.0 * self.model.max_query_radius())
+        self.maps = self.point_map.device_state(self.device)
+        self._opt_cfgs = {name: g["optimizer"] for name, g in config.optimizers.items()}
+        self._scheds = {name: g.get("scheduler") for name, g in config.optimizers.items()}
+        H, W = camera.height, camera.width
+        # channels: rgb, depth, dynamic query radius
+        self.kf_images = torch.zeros((config.max_keyframes, H, W, 5), device=self.device)
+        self.kf_pose = torch.zeros((config.max_keyframes, 7), device=self.device)  # t + quaternion
+        self.kf_count = 0
+        self._dirs = camera_ray_dirs(camera, self.device)
+        self._dirs_np = camera_ray_dirs(camera).numpy()
+
+    # ------------------------------------------------------------------
+    # host-side helpers
+    # ------------------------------------------------------------------
+    def cal_dynamic_radius(self, rgb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-pixel add and query radii from the Sobel colour-gradient
+        magnitude: piecewise linear, [0, 0.01, threshold] -> [r_max, r_max,
+        r_min]. (r_add [H, W], r_query [H, W])."""
+        c = self.config.model
+        gray = rgb @ np.array([0.2125, 0.7154, 0.0721], np.float32)
+        kx = np.array([[1, 0, -1], [2, 0, -2], [1, 0, -1]], np.float32) / 4.0
+        pad = np.pad(gray, 1, mode="edge")
+        gx = sum(kx[i, j] * pad[i:i + gray.shape[0], j:j + gray.shape[1]] for i in range(3) for j in range(3))
+        gy = sum(kx.T[i, j] * pad[i:i + gray.shape[0], j:j + gray.shape[1]] for i in range(3) for j in range(3))
+        mag = np.clip(np.sqrt(gx**2 + gy**2), 0.0, c.pointcloud_color_grad_threshold)
+        xs = [0.0, 0.01, c.pointcloud_color_grad_threshold]
+        r_add = np.interp(mag, xs, [c.pointcloud_radius_add_max, c.pointcloud_radius_add_max,
+                                    c.pointcloud_radius_add_min])
+        ratio = c.pointcloud_radius_query_ratio
+        r_query = np.interp(mag, xs, [ratio * c.pointcloud_radius_add_max, ratio * c.pointcloud_radius_add_max,
+                                      ratio * c.pointcloud_radius_add_min])
+        return r_add.astype(np.float32), r_query.astype(np.float32)
+
+    def _frame_rgbdr(self, frame: Frame) -> torch.Tensor:
+        """[H, W, 5] rgb + depth + dynamic query radius of a frame, on the device."""
+        _, r_query = self.cal_dynamic_radius(frame.rgb)
+        img = np.concatenate([np.asarray(frame.rgb, np.float32), np.asarray(frame.depth, np.float32)[..., None],
+                              r_query[..., None]], -1)
+        return torch.from_numpy(img).to(self.device)
+
+    def _phase_lr(self, group: str, stage: str) -> float:
+        sched = self._scheds.get(group)
+        if isinstance(sched, PointSLAMSchedulerConfig):
+            return sched.lr_for_stage("geometry" if stage == "geometry" else "color")
+        return self._opt_cfgs[group].lr
+
+    @staticmethod
+    def _top_grad_pixels(rgb: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(u, v) of the n pixels of largest colour gradient."""
+        gray = rgb @ np.array([0.2125, 0.7154, 0.0721], np.float32)
+        gx = np.abs(np.diff(gray, axis=1, append=gray[:, -1:]))
+        gy = np.abs(np.diff(gray, axis=0, append=gray[-1:]))
+        mag = (gx + gy).ravel()
+        idx = np.argpartition(mag, -n)[-n:]
+        v, u = np.unravel_index(idx, gray.shape)
+        return u.astype(np.int64), v.astype(np.int64)
+
+    def add_points_from_frame(self, frame: Frame, n_pixels: int, pick: Optional[np.ndarray] = None) -> None:
+        """Density-driven point addition, the add radius per pixel; ``pick``
+        indexes the frame's valid pixels (drawn from ``self.rng`` when
+        omitted). Uploads the map again when points were added."""
+        d = frame.depth
+        vs, us = np.nonzero(d > 0)
+        if len(vs) == 0:
+            return
+        if pick is None:
+            pick = self.rng.integers(0, len(vs), min(n_pixels, len(vs)))
+        u, v = us[pick], vs[pick]
+        z = d[v, u]
+        r_add_map, _ = self.cal_dynamic_radius(frame.rgb)
+        r_add = r_add_map[v, u]
+        n_grad = self.config.mapping_pixels_based_on_color_grad
+        if n_grad > 0:
+            gu, gv = self._top_grad_pixels(frame.rgb, n_grad)
+            gz = d[gv, gu]
+            keep = gz > 0
+            u = np.concatenate([u, gu[keep]])
+            v = np.concatenate([v, gv[keep]])
+            z = np.concatenate([z, gz[keep]])
+            r_add = np.concatenate([r_add, r_add_map[gv, gu][keep]])
+        c2w = frame.get_pose()
+        dirs_w = self._dirs_np[v, u] @ c2w[:3, :3].T
+        surf = c2w[:3, 3] + dirs_w * z[:, None]
+        counts = self.point_map.neighbor_counts(surf, r_add)
+        need = counts < self.config.model.pointcloud_min_nn_num
+        if not need.any():
+            return
+        spread = r_add[need][:, None]
+        zs = z[need][:, None] + spread * np.array([-1.0, 0.0, 1.0])[None, :]
+        pts = (c2w[:3, 3][None, None] + dirs_w[need][:, None, :] * zs[..., None]).reshape(-1, 3)
+        if self.point_map.add_points(pts):
+            self.maps = self.point_map.device_state(self.device)
+
+    # ------------------------------------------------------------------
+    # device steps
+    # ------------------------------------------------------------------
+    def track_step(self, rgbdr: torch.Tensor, pose0: torch.Tensor, samples: Optional[Samples] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``tracking_n_iters`` Adam steps on the pose vector [7] (t, q)
+        against the frozen map, on ``tracking_sample`` interior pixels each
+        (``samples[i]`` = (u, v) when given). Returns the pose of lowest loss
+        seen and that loss."""
+        cfg = self.config
+        H, W = self.camera.height, self.camera.width
+        opt_cfg = self._opt_cfgs["tracking_pose"]
+        sched = self._tracking_lr_schedule(opt_cfg.lr)
+        opt = GroupOptimizers({"tracking_pose": opt_cfg}, schedules={"tracking_pose": sched} if sched else None)
+        pose = pose0.clone().requires_grad_(True)
+        params = {"tracking_pose": [pose]}
+        state = opt.init(params)
+        best_loss = torch.full((), 1e10, device=self.device)
+        best_pose = pose0.clone()
+        for it in range(cfg.tracking_n_iters):
+            if samples is None:
+                u, v = sample_pixels(cfg.tracking_sample, H, W, cfg.tracking_Hedge, cfg.tracking_Wedge,
+                                     self.generator, self.device)
+            else:
+                u, v = samples[it]
+            px = rgbdr[v, u]
+            rays_d = self._dirs[v, u] @ lie.quaternion_to_matrix(pose[3:]).T
+            rays_o = pose[:3].expand(rays_d.shape)
+            loss, _ = self.model.get_loss(self.maps, rays_o, rays_d, px[:, :3], px[:, 3:4], False, "color",
+                                          r_query=px[:, 4])
+            (g,) = torch.autograd.grad(loss, [pose])
+            with torch.no_grad():
+                loss = loss.detach()
+                better = loss < best_loss
+                best_loss = torch.where(better, loss, best_loss)
+                best_pose = torch.where(better, pose, best_pose)
+            opt.update({"tracking_pose": self._finite_guard(loss, [g])}, state, params)
+        return best_pose, best_loss
+
+    def map_step(self, images: torch.Tensor, poses: torch.Tensor, n_valid: int, n_iters: int,
+                 grad_uv: Optional[torch.Tensor] = None, samples: Optional[Samples] = None) -> torch.Tensor:
+        """``n_iters`` Adam steps on the map: the geometry phase, then the
+        colour phase, one Adam state across both. Each iteration renders
+        ``max(mapping_sample // S, min_sample_pixels)`` random pixels of each
+        of the S window slots (``images`` [S, H, W, 5], ``poses`` [S, 7], the
+        first ``n_valid`` real), plus ``grad_uv`` [n, 2] (u, v) on the last;
+        ``samples[i]`` = (u, v) [S, pixels] when given. Returns the losses."""
+        cfg = self.config
+        H, W = self.camera.height, self.camera.width
+        n_slots = images.shape[0]
+        pixs = max(cfg.mapping_sample // n_slots, cfg.min_sample_pixels)
+        fi = torch.tensor([self.window_slot_frame(f, n_valid, n_slots) for f in range(n_slots)], device=self.device)
+        slot = torch.arange(n_slots, device=self.device).repeat_interleave(pixs)
+        if grad_uv is not None and grad_uv.shape[0] > 0:
+            slot = torch.cat([slot, torch.full((grad_uv.shape[0],), n_slots - 1, device=self.device)])
+        frame = fi[slot]
+        rots = lie.quaternion_to_matrix(poses[fi, 3:])[slot]  # [M, 3, 3]
+        rays_o = poses[fi, :3][slot]
+        groups = self.model.param_groups()
+        flat = [p for ps in groups.values() for p in ps]
+        geo_steps = int(cfg.mapping_geo_iter_ratio * n_iters)
+        state = None
+        losses = []
+        it = 0
+        for stage, steps in (("geometry", geo_steps), ("color", n_iters - geo_steps)):
+            if steps <= 0:
+                continue
+            opt = GroupOptimizers({g: dataclasses.replace(self._opt_cfgs[g], lr=self._phase_lr(g, stage))
+                                   for g in groups})
+            if state is None:
+                state = opt.init(groups)
+            for _ in range(steps):
+                if samples is None:
+                    u, v = sample_pixels(n_slots * pixs, H, W, generator=self.generator, device=self.device)
+                else:
+                    u, v = (s.reshape(-1) for s in samples[it])
+                it += 1
+                if grad_uv is not None and grad_uv.shape[0] > 0:
+                    u, v = torch.cat([u, grad_uv[:, 0]]), torch.cat([v, grad_uv[:, 1]])
+                px = images[frame, v, u]
+                rays_d = (rots @ self._dirs[v, u][..., None])[..., 0]
+                loss, _ = self.model.get_loss(self.maps, rays_o, rays_d, px[:, :3], px[:, 3:4], True, stage,
+                                              r_query=px[:, 4])
+                grads = torch.autograd.grad(loss, flat, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+                loss = loss.detach()
+                grads = self._finite_guard(loss, grads)
+                grouped = {}
+                for g, ps in groups.items():
+                    grouped[g], grads = grads[:len(ps)], grads[len(ps):]
+                opt.update(grouped, state, groups)
+                losses.append(loss)
+        return torch.stack(losses)
+
+    # ------------------------------------------------------------------
+    # host API (called by the pipeline)
+    # ------------------------------------------------------------------
+    def _pose_vec(self, frame: Frame) -> torch.Tensor:
+        return torch.as_tensor(np.concatenate([frame.t, frame.r]).astype(np.float32), device=self.device)
+
+    def dispatch_tracking(self, cur_frame: Frame) -> Optional[torch.Tensor]:
+        if not self.is_initialized():
+            return None
+        best, _ = self.track_step(self._frame_rgbdr(cur_frame), self._pose_vec(cur_frame))
+        return best
+
+    def finish_tracking(self, handle) -> Optional[np.ndarray]:
+        if handle is None:
+            return None
+        bp = handle.cpu().numpy()
+        return lie_np.pose_vec_to_matrix(bp[:3], bp[3:], rot_rep="quat")
+
+    def do_mapping(self, cur_frame: Frame) -> None:
+        cfg = self.config
+        first = not self.is_initialized()
+        self.add_points_from_frame(cur_frame, cfg.pixels_adding)
+        k = cfg.mapping_window_size - 1
+        if self.kf_count <= k:
+            slots = list(range(self.kf_count))
+        else:
+            slots = sorted(int(s) for s in self.rng.permutation(self.kf_count - 1)[: k - 1]) + [self.kf_count - 1]
+        cur_img = self._frame_rgbdr(cur_frame)[None]
+        cur_pose = self._pose_vec(cur_frame)
+        idx = torch.tensor(slots, dtype=torch.long, device=self.device)
+        images = torch.cat([self.kf_images[idx], cur_img], 0)
+        poses = torch.cat([self.kf_pose[idx], cur_pose[None]], 0)
+        images, poses = self.pad_window(images, poses, cur_img, cur_pose, cfg.mapping_window_size)
+        n_grad = cfg.mapping_pixels_based_on_color_grad
+        grad_uv = None
+        if n_grad > 0:
+            gu, gv = self._top_grad_pixels(cur_frame.rgb, n_grad)
+            grad_uv = torch.as_tensor(np.stack([gu, gv], -1), device=self.device)
+        self.map_step(images, poses, len(slots) + 1, cfg.mapping_first_n_iters if first else cfg.mapping_n_iters,
+                      grad_uv)
+        if first:
+            self.set_initialized()
+
+    def add_keyframe(self, keyframe: Frame) -> None:
+        if self.kf_count >= self.config.max_keyframes:
+            raise RuntimeError("keyframe capacity exceeded; raise max_keyframes")
+        slot = self.kf_count
+        self.kf_images[slot] = self._frame_rgbdr(keyframe)
+        self.kf_pose[slot] = self._pose_vec(keyframe)
+        self.kf_count += 1
+        self.keyframe_fids.append(keyframe.fid)
+
+    @torch.no_grad()
+    def render_img(self, c2w: np.ndarray, gt_depth: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """(rgb [H, W, 3] in [0, 1], depth [H, W]) rendered at ``c2w`` in
+        chunks of ``ray_batch_size`` rays at the largest query radius; the
+        last chunk is padded as the reference pads it, since rays without
+        depth sample by a statistic of their chunk."""
+        cam = self.camera
+        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=self.device)
+        rays_d = self._dirs.reshape(-1, 3) @ c2w[:3, :3].T
+        rays_o = c2w[:3, 3].expand(rays_d.shape)
+        n = rays_d.shape[0]
+        gt = (torch.zeros((n, 1), device=self.device) if gt_depth is None
+              else torch.as_tensor(np.asarray(gt_depth, np.float32), device=self.device).reshape(-1, 1))
+        bs = self.config.ray_batch_size
+        rq = torch.full((bs,), self.model.max_query_radius(), device=self.device)
+        dep, col = [], []
+        for i in range(0, n, bs):
+            ro, rd, td = rays_o[i:i + bs], rays_d[i:i + bs], gt[i:i + bs]
+            pad = bs - ro.shape[0]
+            if pad > 0:
+                ro = torch.cat([ro, torch.zeros((pad, 3), device=self.device)])
+                rd = torch.cat([rd, torch.ones((pad, 3), device=self.device)])
+                td = torch.cat([td, torch.zeros((pad, 1), device=self.device)])
+            out = self.model.render_rays(self.maps, ro, rd, td, "color", r_query=rq)
+            dep.append(out["depth"][:bs - pad])
+            col.append(out["rgb"][:bs - pad])
+        rgb = torch.clamp(torch.cat(col), 0, 1).reshape(cam.height, cam.width, 3)
+        return rgb.cpu().numpy(), torch.cat(dep).reshape(cam.height, cam.width).cpu().numpy()

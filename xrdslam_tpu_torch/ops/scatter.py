@@ -1,11 +1,14 @@
-"""Row scatter-add through a hand-written CUDA kernel, with a plain twin.
+"""Row scatter-add through a hand-written CUDA kernel, with a plain twin,
+and the embedding lookup whose gradient it is.
 
 Counterpart of ``xrdslam_tpu/ops/pallas_scatter.py``. ``scatter_add(idx,
 g, num_rows)`` is ``zeros([num_rows, C]).at[idx].add(g)`` in fp32, the
-function that ``scatter_add_matmul`` computes on SplaTAM's path (there it
-takes its exact XLA-scatter branch; see the note in
-``kernels/scatter.cu``, K4). ``table_lookup``, its other caller in the
-reference package, comes with Vox-Fusion.
+function that ``scatter_add_matmul`` computes on SplaTAM's path and on
+Point-SLAM's (at their 131,072 and 262,144 rows it takes its exact
+XLA-scatter branch; see the note in ``kernels/scatter.cu``, K4).
+``table_lookup(table, idx)`` is ``table[idx]`` (plain indexing, as the
+reference's ``jnp.take``) with K4 as its gradient: Point-SLAM's feature
+tables take theirs through it.
 
 A CUDA tensor goes to the kernel, which raises if it cannot build or
 launch; a CPU tensor goes to ``scatter_add_torch`` (``index_add_``).
@@ -56,3 +59,23 @@ def scatter_add(idx: torch.Tensor, g: torch.Tensor, num_rows: int) -> torch.Tens
     kernels.check(lib, code, "scatter_add")
     LAUNCHES["scatter_add"] += 1
     return out
+
+
+class _TableLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = table.shape[0]
+        return table[idx.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return scatter_add(idx, g, ctx.num_rows), None
+
+
+def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table [R, C], idx [...] int -> [..., C]; the gradient of ``table`` is
+    ``scatter_add`` (K4 on CUDA)."""
+    out = _TableLookup.apply(table, idx.reshape(-1).to(torch.int32))
+    return out.reshape(*idx.shape, table.shape[1])

@@ -8,7 +8,11 @@ reference Co-SLAM ``model_params`` tree with its leaves as numpy arrays
 (``{"embed_fn": {"table": [L,T,F]}, "decoder": {"sdf": {"w": [...]},
 "color": {"w": [...]}}}``, each ``w`` ``[in, out]``) and copies it into a
 ``JointEncoding``. Linear weights are transposed to
-``nn.Linear``'s ``[out, in]``.
+``nn.Linear``'s ``[out, in]``. ``pointslam_params_from_jax`` takes the
+reference Point-SLAM ``params`` tree (``{"geometry": {"feats"}, "color":
+{"feats", "relpos_B", "nb_w1", "nb_b1", "nb_w2", "nb_b2"}, "decoder":
+{"geo": ..., "col": ...}}``, each decoder ``{"B", "pts_w", "pts_b", "fc_w",
+"fc_b", "out_w", "out_b"}``) and copies it into a ``ConvOnet2``.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.conv_onet import MLPDecoder
+from ..models.conv_onet_pointslam import ConvOnet2
 from ..models.gaussian_splatting import GAUSS_GROUPS
 from ..models.joint_encoding import JointEncoding
 
@@ -47,3 +53,34 @@ def gaussian_params_from_jax(np_tree: Dict[str, Any], device="cpu", dead: Option
     params = {k: torch.tensor(np.asarray(np_tree[k], np.float32), device=device) for k in GAUSS_GROUPS}
     dead_t = None if dead is None else torch.tensor(np.asarray(dead, bool), device=device)
     return params, dead_t, None if count is None else int(np.asarray(count))
+
+
+def _linear(layer: torch.nn.Linear, w: Any, b: Any, what: str) -> None:
+    _copy(layer.weight, np.asarray(w).T, f"{what}.w")
+    _copy(layer.bias, b, f"{what}.b")
+
+
+def _decoder(dec: MLPDecoder, tree: Dict[str, Any], what: str) -> None:
+    _copy(dec.B, tree["B"], f"{what}.B")
+    if len(tree["pts_w"]) != len(dec.pts) or ("fc_w" in tree) != (dec.fc is not None):
+        raise ValueError(f"{what}: the reference decoder has another layout")
+    for i, layer in enumerate(dec.pts):
+        _linear(layer, tree["pts_w"][i], tree["pts_b"][i], f"{what}.pts[{i}]")
+    for i, layer in enumerate(dec.fc or []):
+        _linear(layer, tree["fc_w"][i], tree["fc_b"][i], f"{what}.fc[{i}]")
+    _linear(dec.out, tree["out_w"], tree["out_b"], f"{what}.out")
+
+
+@torch.no_grad()
+def pointslam_params_from_jax(np_tree: Dict[str, Any], model: ConvOnet2) -> ConvOnet2:
+    _copy(model.geo_feats, np_tree["geometry"]["feats"], "geometry.feats")
+    col = np_tree["color"]
+    _copy(model.col_feats, col["feats"], "color.feats")
+    if "relpos_B" not in col:
+        raise ValueError("color: the reference model has no relative-position MLP")
+    _copy(model.relpos_B, col["relpos_B"], "color.relpos_B")
+    _linear(model.nb1, col["nb_w1"], col["nb_b1"], "color.nb1")
+    _linear(model.nb2, col["nb_w2"], col["nb_b2"], "color.nb2")
+    _decoder(model.geo_decoder, np_tree["decoder"]["geo"], "decoder.geo")
+    _decoder(model.col_decoder, np_tree["decoder"]["col"], "decoder.col")
+    return model
