@@ -10,7 +10,9 @@
    kernel, kernel, twin), beside its bound (the least time the card could
    take, from the bytes it must move and the operations it must do):
    the hash-grid kernels K1-K3 at Co-SLAM's mapping shapes (N = 176,128
-   points, some outside [0,1]^3); the rasterizer K5/K6 and the scatter-add
+   points, some outside [0,1]^3) and the plane-layout hash-grid kernels
+   K8/K9 at the same shapes (nothing in the repository calls them: they
+   are held at function level); the rasterizer K5/K6 and the scatter-add
    K4 on gaussians grown from an office frame at 600x340 and binned at its
    pose (836 tiles, K = 256, 131,072 rows), with a seeded random upstream
    gradient. K4 is also timed against ``Tensor.index_add_``. The row
@@ -20,8 +22,19 @@
    at width 1024 for K7a and 128 for K7b, timed against
    ``torch.index_select``); and K4 at ``table_lookup``'s shape, the
    199,680 neighbour rows of those samples into the 262,144 x 32 table.
-4. Runs, through the port's runner: Co-SLAM (exact hash grid) on the
-   synthetic office at 600x340 with the benchmark settings (gated);
+4. Runs, through the port's runner: Co-SLAM on the synthetic office at
+   600x340 with the benchmark settings, twice (gated): with the exact hash
+   grid (K1-K3) and at the registry's default, the packed hash (K4 as its
+   tables' gradient, launches equal to the schedule's); Co-SLAM at the
+   accuracy protocol (``bench_accuracy.py``'s configuration: the
+   tri-plane, 200 frames; gated on ATE, K4 launches equal to the
+   schedule's), then its protocol row: PSNR, SSIM and depth-L1 of
+   ``render_img`` every 50 frames, and accuracy, completion and completion
+   ratio of its culled mesh against the scene's exact one, printed as one
+   ``[protocol]`` line beside the JAX package's row of
+   ``BENCH_ACCURACY.json`` and the verdicts of ``bench_accuracy.py``'s
+   gates (read from the two files as data; only the ATE gate and finite
+   values fail the smoke);
    SplaTAM on the office at 600x340 for 20 frames with the registry's
    settings but 512 slots per tile (gated); SplaTAM's main path,
    the same with the registry's settings (256 slots per tile; ATE
@@ -32,7 +45,8 @@
    (``FROZEN_ATE_SHARE``). Every pose must be finite and every kernel of
    each main path launched (the launch counts are zeroed just before each
    run and read just after).
-5. Profiles one tracking and one mapping call of each with torch.profiler
+5. Profiles one tracking and one mapping call of each run on a main path
+   with torch.profiler
    (Point-SLAM's mapping call with 60 iterations): wall time, device busy
    time and the kernels that take it. ``[elapsed]`` lines stamp the
    phases.
@@ -63,6 +77,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 COSLAM_FRAMES = 60
+PROTOCOL_FRAMES = 200  # bench_accuracy.py's sequence
+PROTOCOL_RENDER_FREQ = 50  # bench_accuracy.py's default render_freq
 SPLATAM_FRAMES = 20
 POINTSLAM_FRAMES = 12  # a first mapping of 1,500 iterations, then 11 x (40 tracking + 300 mapping)
 # The profiled Point-SLAM mapping call runs 60 of the registry's 300
@@ -180,9 +196,9 @@ def steady_stats(frame_times):
 
 
 def _counted_modules():
-    from xrdslam_tpu_torch.ops import gaussian_raster, hashgrid_fast, row_gather, scatter
+    from xrdslam_tpu_torch.ops import gaussian_raster, hashgrid_fast, hashgrid_planes, row_gather, scatter
 
-    return hashgrid_fast, gaussian_raster, scatter, row_gather
+    return hashgrid_fast, hashgrid_planes, gaussian_raster, scatter, row_gather
 
 
 def reset_all_launches() -> None:
@@ -263,6 +279,103 @@ def check_hashgrid(spec, device):
              "max_abs_err": err[k], "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
              "bound_by": bounds[k][1], "library_ms": None}
             for name, k, rep, counter in rows]
+
+
+def check_hashgrid_planes(spec, device):
+    """K8/K9 vs twin at the mapping shape, on the plane layout of a random
+    office-spec table; returns the per-kernel records (0 launches: no path
+    calls them)."""
+    import torch
+
+    from xrdslam_tpu_torch.ops import hashgrid_planes as hp
+
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.uniform(-0.05, 1.05, (N_MAP, 3)).astype(np.float32), device=device)
+    g = torch.as_tensor(rng.standard_normal((N_MAP, spec.out_dim)).astype(np.float32), device=device)
+    table = torch.as_tensor(rng.standard_normal((spec.n_levels, spec.table_size, 2)).astype(np.float32), device=device)
+    planes = hp.pack_table(table)
+
+    out_k = hp.hashgrid_planes_fwd(planes, x, spec)
+    dp_k, dx_k = hp.hashgrid_planes_bwd(planes, x, g, spec)
+    torch.cuda.synchronize()
+    out_t = hp.hashgrid_planes_fwd_torch(planes, x, spec)
+    dp_t, dx_t = hp.hashgrid_planes_bwd_torch(planes, x, g, spec)
+    err = {"fwd": float((out_k - out_t).abs().max()), "dx": float((dx_k - dx_t).abs().max()),
+           "dplanes": float((dp_k - dp_t).abs().max())}
+    scale = {"fwd": float(out_t.abs().max()), "dx": float(dx_t.abs().max()), "dplanes": float(dp_t.abs().max())}
+    limit = {"fwd": FWD_ATOL, "dx": BWD_RTOL * scale["dx"], "dplanes": BWD_RTOL * scale["dplanes"]}
+    for k in err:
+        check(f"planes {k}", err[k], limit[k], scale[k])
+    del out_t, dp_t, dx_t
+    ms = {"fwd": interleaved(lambda: hp.hashgrid_planes_fwd(planes, x, spec),
+                             lambda: hp.hashgrid_planes_fwd_torch(planes, x, spec)),
+          "bwd": interleaved(lambda: hp.hashgrid_planes_bwd(planes, x, g, spec),
+                             lambda: hp.hashgrid_planes_bwd_torch(planes, x, g, spec))}
+    for k, (k_ms, t_ms) in ms.items():
+        print(f"[time] planes {k} N={N_MAP}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms")
+    # Bounds as for K1-K3; K9's operations per corner are K2's and K3's
+    # together (the weight once): 2 + 4 + 10.
+    pl = N_MAP * spec.n_levels
+    bounds = {"fwd": bound(nbytes(planes, x, out_k), pl * (12 + 8 * 6)),
+              "bwd": bound(nbytes(planes, x, g, dx_k, dp_k), pl * (12 + 8 * 16))}
+    for k, (b_ms, by) in bounds.items():
+        print(f"[bound] planes {k}: {b_ms:.4f} ms ({by})")
+    src, ref = "xrdslam_tpu_torch/kernels/hashgrid.cu", "xrdslam_tpu/ops/pallas_hashgrid.py"
+    rows = (("hashgrid_planes_fwd", "fwd", f"{ref}:103 (_fwd_kernel; nothing in the repository calls it)",
+             err["fwd"]),
+            ("hashgrid_planes_bwd", "bwd", f"{ref}:123 (_bwd_kernel; nothing in the repository calls it)",
+             max(err["dx"], err["dplanes"])))
+    # no single PyTorch call computes a hash-grid encoding or its gradients
+    return [{"name": name, "route": "cuda", "source": src, "replaces": rep, "counter": None,
+             "max_abs_err": e, "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
+             "bound_by": bounds[k][1], "library_ms": None}
+            for name, k, rep, e in rows]
+
+
+def check_scatter_coslam(spec, device):
+    """K4 at the shapes Co-SLAM's encodings give it (mapping: N = 176,128
+    points): the packed hash's finest level (rows of 16 into T = 65,536) and
+    the tri-plane's finer scale (rows of 4 x 8 moments into 512^2 cells),
+    rows from the cells of random points; returns the records."""
+    import torch
+
+    from xrdslam_tpu_torch.ops import hashgrid_packed, triplane
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.uniform(0.0, 1.0, (N_MAP, 3)).astype(np.float32), device=device)
+    u0, _ = triplane._cells(x, 512)
+    cases = {
+        "scatter_add[packed hash]": (hashgrid_packed._cells(x, spec)[0][:, -1].to(torch.int32), 16, spec.table_size),
+        "scatter_add[triplane]": ((u0[:, 0] * 512 + u0[:, 1]).to(torch.int32), 32, 512 * 512),
+    }
+    records = []
+    for name, (idx, width, rows) in cases.items():
+        idx = idx.contiguous()
+        g = torch.as_tensor(rng.standard_normal((N_MAP, width)).astype(np.float32), device=device)
+        acc_k = sc.scatter_add(idx, g, rows)
+        torch.cuda.synchronize()
+        acc_t = sc.scatter_add_torch(idx, g, rows)
+        err = float((acc_k - acc_t).abs().max())
+        scale = float(acc_t.abs().max())
+        check(name, err, BWD_RTOL * scale, scale)
+        idx_long = idx.long()
+        lib_out = torch.empty((rows, width), device=device)
+
+        def index_add():
+            lib_out.zero_()
+            lib_out.index_add_(0, idx_long, g)
+
+        k_ms, t_ms = interleaved(lambda: sc.scatter_add(idx, g, rows), lambda: sc.scatter_add_torch(idx, g, rows))
+        lib_ms = min(cuda_ms(index_add) for _ in range(2))
+        b_ms, by = bound(nbytes(idx, g, acc_k), int((g != 0).sum()))
+        print(f"[time] {name}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms, index_add_ {lib_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({by}); device time (profiler) kernel "
+              f"{device_ms(lambda: sc.scatter_add(idx, g, rows)):.4f} ms, index_add_ {device_ms(index_add):.4f} ms")
+        records.append({"name": name, "route": "cuda", "source": "xrdslam_tpu_torch/kernels/scatter.cu",
+                        "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": name, "max_abs_err": err,
+                        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms})
+    return records
 
 
 def grown_office_frame(device, model_overrides=None):
@@ -529,26 +642,43 @@ def pointslam_schedule(cfg, n_frames: int):
             "scatter_add": sum(g + 2 * (it - g) for g, it in zip(geo, iters))}
 
 
+def coslam_scatter_schedule(cfg, n_frames: int, spec, encoding: str) -> int:
+    """K4 launches of a Co-SLAM run whose frames are mapped every
+    ``map_every`` and on the last frame: the packed hash scatters one table
+    gradient per level for each encode that a mapping backward
+    differentiates (the rays'; after the first mapping also the smoothness
+    grid's); the tri-plane one per plane and scale for the rays' encode
+    (its smoothness is a TV on the planes). Tracking's tables are
+    constants: none."""
+    a, t = cfg.xrdslam.algorithm, cfg.xrdslam.tracker
+    n_later = sum(1 for i in range(1, n_frames) if i % t.map_every == 0 or i == n_frames - 1)
+    first, later = a.mapping_first_n_iters, a.mapping_n_iters * n_later
+    if encoding == "triplane":
+        per = 3 * len(cfg.xrdslam.algorithm.model.triplane_resolutions)
+        return per * (first + later)
+    return spec.n_levels * (first + 2 * later)
+
+
 # ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
 
-def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_cm=None, tag: str = ""):
+def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_cm=None, tag: str = "", config=None):
     """One algorithm through the port's runner on synthetic ``data`` with
     the registry's settings and ``overrides`` ({dotted config path under
     ``xrdslam``: value}); returns (pipeline, results). The launch counts
     are zeroed just before the run and read just after; each of
     ``counters`` must have moved. Poses must be finite; where
     ``ate_limit_cm`` is given, the ATE must be at most that and at most
-    ``FROZEN_ATE_SHARE`` of the ATE of a camera frozen at frame 0."""
+    ``FROZEN_ATE_SHARE`` of the ATE of a camera frozen at frame 0.
+    ``config`` replaces the registry's entry."""
     import torch
 
-    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
     from xrdslam_tpu_torch.configs.registry import algorithm_configs
     from xrdslam_tpu_torch.utils.eval_ate import evaluate_ate
 
     name = algorithm + tag
-    cfg = copy.deepcopy(algorithm_configs[algorithm])
+    cfg = copy.deepcopy(config or algorithm_configs[algorithm])
     cfg.data, cfg.data_type = data, "synthetic"
     cfg.out_dir = os.path.join(ROOT, "build", f"chip_smoke_{name}")
     cfg.xrdslam.device = "cuda"
@@ -611,6 +741,92 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     return pipeline, res
 
 
+def protocol_config(bounds):
+    """Co-SLAM as ``bench_accuracy.py::build_coslam`` configures it: the
+    registry's entry with the tri-plane, the scene's bounds for mapping and
+    meshing, a keyframe table sized to the run, 30,000 rays per render
+    chunk and a mesher at resolution 256."""
+    from xrdslam_tpu_torch.common.mesher import MesherConfig
+    from xrdslam_tpu_torch.configs.registry import algorithm_configs
+    from xrdslam_tpu_torch.models.joint_encoding import JointEncodingConfig
+
+    cfg = copy.deepcopy(algorithm_configs["co-slam"])
+    a = cfg.xrdslam.algorithm
+    a.seed = 0
+    a.mapping_bound = a.marching_cubes_bound = bounds
+    a.max_keyframes = PROTOCOL_FRAMES // 5 + 2
+    a.ray_batch_size = 30000
+    a.mesher = MesherConfig(resolution=256)
+    a.model = JointEncodingConfig(encoding="triplane")
+    return cfg
+
+
+def reference_row():
+    """The JAX package's co-slam row of ``BENCH_ACCURACY.json`` and
+    ``bench_accuracy.py``'s gates for it, both read as data."""
+    import ast
+
+    with open(os.path.join(ROOT, "BENCH_ACCURACY.json")) as f:
+        row = next(r for r in json.load(f)["algorithms"] if r["algorithm"] == "co-slam")
+    with open(os.path.join(ROOT, "bench_accuracy.py")) as f:
+        tree = ast.parse(f.read())
+    gates = next(ast.literal_eval(n.value) for n in tree.body
+                 if isinstance(n, ast.Assign) and any(getattr(t, "id", "") == "GATES" for t in n.targets))
+    return row, gates["co-slam"]
+
+
+def protocol_row(pipeline, ate_cm: float) -> dict:
+    """``bench_accuracy.run_algo``'s co-slam row of a finished run: PSNR,
+    SSIM and depth-L1 of ``render_img`` at the estimated pose every
+    ``PROTOCOL_RENDER_FREQ`` frames; accuracy, completion and completion
+    ratio of the culled mesh against the culled exact mesh. Prints the
+    ``[protocol]`` line and raises if a value is not finite."""
+    from xrdslam_tpu_torch.common import metrics as M
+    from xrdslam_tpu_torch.ops import marching_tets
+    from xrdslam_tpu_torch.utils.eval_recon import calc_3d_metric
+    from xrdslam_tpu_torch.utils.mesh_ops import cull_mesh
+
+    algo, ds = pipeline.algorithm, pipeline.dataset
+    est = algo.estimate_c2w_list
+    t0 = time.perf_counter()
+    sums = {"psnr": 0.0, "ssim": 0.0, "depth_l1": 0.0}
+    frames = list(range(0, len(ds), PROTOCOL_RENDER_FREQ))
+    for i in frames:
+        _, gt_rgb, gt_depth, _ = ds[i]
+        color, depth = algo.render_img(np.asarray(est[i]), gt_depth=gt_depth, idx=i)
+        mask = gt_depth > 0
+        sums["psnr"] += M.psnr(color, gt_rgb, mask)
+        sums["ssim"] += M.ssim(color, gt_rgb)
+        sums["depth_l1"] += M.depth_l1(depth, gt_depth, mask) * 100.0
+    t_render = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = algo.get_mesh()
+    if mesh is None:
+        raise RuntimeError("co-slam@protocol: get_mesh found no surface")
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec = cull_mesh(ds, mesh, estimate_c2w_list=est, eval_rec=True)
+    gt = cull_mesh(ds, ds.gt_mesh(voxel=0.02))
+    m3 = calc_3d_metric(rec, gt)
+    t_metric = time.perf_counter() - t0
+    print(f"[protocol] render sweep ({len(frames)} frames) {t_render:.3f} s; get_mesh {t_mesh:.3f} s "
+          f"(marching tetrahedra: {marching_tets.backend()} path; {len(mesh.vertices)} vertices, "
+          f"{len(mesh.faces)} faces); culls and 3D metrics {t_metric:.3f} s")
+    row = {"ate_cm": ate_cm, "psnr": sums["psnr"] / len(frames), "ssim": sums["ssim"] / len(frames),
+           "depth_l1_cm": sums["depth_l1"] / len(frames), "accuracy_cm": m3["accuracy_cm"],
+           "completion_cm": m3["completion_cm"], "completion_ratio_pct": m3["completion_ratio_pct"],
+           "precision_pct": m3["precision_pct"], "recall_pct": m3["recall_pct"], "f1_pct": m3["f1_pct"]}
+    jax_row, gates = reference_row()
+    verdicts = {k: bool(row[k] <= thr) if op == "<=" else bool(row[k] >= thr) for k, (op, thr) in gates.items()}
+    print("[protocol] " + json.dumps({"port": row, "jax": {k: jax_row.get(k) for k in row},
+                                      "gates": {k: list(v) for k, v in gates.items()}, "port_passes": verdicts,
+                                      "frames": len(ds), "render_freq": PROTOCOL_RENDER_FREQ}))
+    bad = [k for k, v in row.items() if not np.isfinite(v)]
+    if bad:
+        raise RuntimeError(f"co-slam@protocol: non-finite {bad}")
+    return row
+
+
 def profile(name: str, phases) -> None:
     """torch.profiler over one call of each phase (after one warm call)."""
     import torch
@@ -645,13 +861,13 @@ def last_frame(pipeline):
     return Frame(fid=-1, rgb=rgb, depth=depth, init_pose=algo.estimate_c2w_list[-1], rot_rep=algo.config.rot_rep)
 
 
-def profile_coslam(pipeline) -> None:
+def profile_coslam(pipeline, name: str = "co-slam") -> None:
     """One tracking and one (non-first) mapping call on the last frame; it
     updates the finished run's map."""
     algo = pipeline.algorithm
     fr = last_frame(pipeline)
     args = (fr.rgb_dev(algo.device), fr.depth_dev(algo.device), algo._pose(fr.t), algo._pose(fr.r))
-    profile("co-slam", {"track": lambda: algo.track_step(*args),
+    profile(name, {"track": lambda: algo.track_step(*args),
                         "map": lambda: algo.map_step(*args, algo.config.mapping_n_iters, False, algo._cur_cap())})
 
 
@@ -746,6 +962,8 @@ def main(argv) -> None:
     print(f"[spec] levels {spec.n_levels}, T=2^{spec.log2_table_size}, res {spec.resolutions}, "
           f"dense {sum(spec.dense)}")
     records = check_hashgrid(spec, device)
+    records += check_hashgrid_planes(spec, device)
+    records += check_scatter_coslam(spec, device)
     stamp("hash-grid kernels checked")
     records += check_raster(device)
     stamp("rasterizer kernels checked")
@@ -757,15 +975,38 @@ def main(argv) -> None:
     # the reference benchmark's Co-SLAM settings: the registry's entry with
     # the scene's bounds and a keyframe table sized to the run
     bounds = SyntheticDataset(office).bounds.tolist()
-    pipeline, res = run_slam("co-slam", f"n_frames={COSLAM_FRAMES},{office}",
-                             ("hashgrid_fwd", "hashgrid_bwd_dx", "hashgrid_bwd_dtable"),
-                             {"algorithm.mapping_bound": bounds,
-                              "algorithm.max_keyframes": max(COSLAM_FRAMES // 5 + 2, 8)}, ATE_LIMIT_CM)
+    coslam_data = f"n_frames={COSLAM_FRAMES},{office}"
+    bench = {"algorithm.mapping_bound": bounds, "algorithm.max_keyframes": max(COSLAM_FRAMES // 5 + 2, 8)}
+    # the exact hash grid (K1-K3), an option of the registry's entry
+    pipeline, res = run_slam("co-slam", coslam_data, ("hashgrid_fwd", "hashgrid_bwd_dx", "hashgrid_bwd_dtable"),
+                             {**bench, "algorithm.model.hash_packed": False}, ATE_LIMIT_CM, tag="@exact")
     launches = dict(res["launches"])
-    profile_coslam(pipeline)
-    stamp("co-slam run and profile")
+    profile_coslam(pipeline, "co-slam@exact")
+    stamp("co-slam@exact run and profile")
     del pipeline
     torch.cuda.empty_cache()
+    # Co-SLAM's main path: the registry's default, the packed hash (K4 as
+    # its tables' gradient), and the accuracy protocol's tri-plane
+    coslam_runs = (
+        ("@packed", coslam_data, None, bench),
+        ("@protocol", f"n_frames={PROTOCOL_FRAMES},{office}", protocol_config(bounds), None),
+    )
+    for tag, data, config, overrides in coslam_runs:
+        pipeline, res = run_slam("co-slam", data, ("scatter_add",), overrides, ATE_LIMIT_CM, tag=tag, config=config)
+        model = pipeline.algorithm.model
+        encoding = "triplane" if model.tp_spec is not None else "packed"
+        want = coslam_scatter_schedule(config or algorithm_configs["co-slam"], res["frames"], model.spec, encoding)
+        print(f"[launches] co-slam{tag}: {json.dumps(res['launches'])}; schedule scatter_add {want}")
+        if res["launches"]["scatter_add"] != want:
+            raise RuntimeError(f"co-slam{tag}: scatter_add launches {res['launches']['scatter_add']} != {want}")
+        launches[f"scatter_add[{'packed hash' if encoding == 'packed' else 'triplane'}]"] = res["launches"]["scatter_add"]
+        if tag == "@protocol":  # before the profile's calls change the map
+            protocol_row(pipeline, res["ate_rmse_cm"])
+            stamp("co-slam protocol row")
+        profile_coslam(pipeline, f"co-slam{tag}")
+        stamp(f"co-slam{tag} run and profile")
+        del pipeline, model
+        torch.cuda.empty_cache()
     splatam_data = f"n_frames={SPLATAM_FRAMES},{office}"
     # SplaTAM's accuracy at full width (see SPLATAM_GATE)
     run_slam("splaTAM", splatam_data, overrides=SPLATAM_GATE, ate_limit_cm=ATE_LIMIT_CM, tag="@k512")

@@ -1,13 +1,15 @@
-"""Co-SLAM in the port: step parity with the JAX package, the per-frame run
-through the CLI entry point, and the port's boundaries (no jax import, no
-CPU fallback for a CUDA request, unported layouts refused).
+"""Co-SLAM in the port: step parity with the JAX package for each of its
+three scene encodings, the full-image render and the mesh, the per-frame
+run through the CLI entry point, and the port's boundaries (no jax import,
+no CPU fallback for a CUDA request, unported options refused).
 
 Step parity carries a small JAX JointEncoding over with ``params_from_jax``
 and compares ``get_loss`` and its gradients on the same rays, with the z
-jitter off. The JAX model on the CPU encodes through its plain reference,
-whose position gradient is zeroed outside [0,1]^3 where the port's (like
-the TPU kernel's) is not; the bounds here keep every sample inside the box,
-so both compute the same function.
+jitter off, for the exact hash, the packed hash (the registry's default)
+and the tri-plane. The encodings' position gradients differ outside
+[0,1]^3 (the JAX exact hash on the CPU runs its plain reference, zeroed
+there; the port's follows the TPU kernel and is not); the bounds here keep
+every sample inside the box, so both compute the same function.
 """
 import os
 import pickle
@@ -22,12 +24,16 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from xrdslam_tpu.algorithms.base import Algorithm as JAlgorithm, AlgorithmConfig as JAlgorithmConfig  # noqa: E402
+from xrdslam_tpu.algorithms.coslam import CoSLAMConfig as JCoSLAMConfig  # noqa: E402
+from xrdslam_tpu.common.mesher import MesherConfig as JMesherConfig  # noqa: E402
 from xrdslam_tpu.common.camera import Camera as JCamera  # noqa: E402
 from xrdslam_tpu.common.frame import Frame as JFrame  # noqa: E402
 from xrdslam_tpu.common.synthetic import SyntheticDataset as JSyntheticDataset  # noqa: E402
 from xrdslam_tpu.models.joint_encoding import JointEncodingConfig as JJointEncodingConfig  # noqa: E402
 from xrdslam_tpu.ops import lie as jlie, sampling as jsamp  # noqa: E402
 from xrdslam_tpu_torch.algorithms.base import Algorithm, AlgorithmConfig  # noqa: E402
+from xrdslam_tpu_torch.algorithms.coslam import CoSLAMConfig  # noqa: E402
+from xrdslam_tpu_torch.common.mesher import MesherConfig  # noqa: E402
 from xrdslam_tpu_torch.common.camera import Camera  # noqa: E402
 from xrdslam_tpu_torch.common.frame import Frame  # noqa: E402
 from xrdslam_tpu_torch.common.synthetic import SyntheticDataset  # noqa: E402
@@ -52,18 +58,30 @@ def few_threads():
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAM = dict(fx=50.0, fy=50.0, cx=29.5, cy=19.5, height=40, width=60)
 BOUND = np.array([[-6.0, 6.0]] * 3, np.float32)  # every sample of a 5 m ray from near the centre is inside
-MODEL = dict(n_levels=4, hashsize=10, base_resolution=8, hash_packed=False, training_perturb=0)
+MODEL = dict(n_levels=4, hashsize=10, base_resolution=8, training_perturb=0)
+# the three scene encodings: the exact per-vertex hash, the packed hash (the
+# registry's default) and two scales of small tri-planes
+ENCODINGS = {"exact": dict(hash_packed=False), "packed": dict(hash_packed=True),
+             "triplane": dict(encoding="triplane", triplane_resolutions=(16, 32), triplane_features=(4, 4))}
 REL = 1e-4
 
 
-@pytest.fixture(scope="module")
-def models():
-    jmodel = JJointEncodingConfig(**MODEL).setup(camera=JCamera(**CAM), bounding_box=BOUND)
+@pytest.fixture(scope="module", params=list(ENCODINGS))
+def models(request):
+    kw = {**MODEL, **ENCODINGS[request.param]}
+    jmodel = JJointEncodingConfig(**kw).setup(camera=JCamera(**CAM), bounding_box=BOUND)
     params = jmodel.init_params(jax.random.PRNGKey(0))
-    tmodel = JointEncoding(JointEncodingConfig(**MODEL), Camera(**CAM), BOUND)
+    tmodel = JointEncoding(JointEncodingConfig(**kw), Camera(**CAM), BOUND)
     params_from_jax(jax.tree_util.tree_map(np.asarray, params), tmodel)
     assert tmodel.spec == jmodel.spec and any(tmodel.spec.dense) and not all(tmodel.spec.dense)
+    assert tmodel.input_ch == jmodel.input_ch
     return jmodel, params, tmodel
+
+
+def _jax_tables(grads):
+    """The JAX table gradient(s) as {name: array}, named as in the port."""
+    t = grads["embed_fn"]["table"]
+    return dict(t) if isinstance(t, dict) else {"": t}
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +120,7 @@ def test_tracking_loss_and_pose_grads_match_jax(models, rays):
     t = torch.tensor(t0, requires_grad=True)
     rd = torch.from_numpy(dirs) @ lie.axis_angle_to_matrix(r).T
     loss, _ = tmodel.get_loss(t.expand(rd.shape), rd, torch.from_numpy(ts), torch.from_numpy(td), None, False, False,
-                              detach_table=True)
+                              packed=tmodel.pack_tables())
     got_r, got_t = torch.autograd.grad(loss, [r, t])
     _close(loss.item(), float(want), "loss")
     _close(got_r.numpy(), gr, "d loss / d r")
@@ -123,12 +141,74 @@ def test_first_mapping_loss_and_map_grads_match_jax(models, rays):
     want, grads = jax.jit(jax.value_and_grad(jloss))(params)
     loss, _ = tmodel.get_loss(*(torch.tensor(a) for a in (ro, rd, ts, td, mask)), True, True)
     groups = tmodel.param_groups()
+    n_tables = len(groups["embed_fn"])
     got = torch.autograd.grad(loss, groups["embed_fn"] + groups["decoder"])
     _close(loss.item(), float(want), "loss")
-    _close(got[0].numpy(), grads["embed_fn"]["table"], "d loss / d table")
+    names = [""] if n_tables == 1 else list(tmodel.embed_fn.keys())
+    jt = _jax_tables(grads)
+    assert sorted(jt) == sorted(names)
+    for name, g in zip(names, got[:n_tables]):
+        # the reference pads a packed dense level's rows; its vertex-grid gradient has no padding
+        _close(g.numpy(), jt[name], f"d loss / d table {name}")
     jw = grads["decoder"]["sdf"]["w"] + grads["decoder"]["color"]["w"]
-    for i, (g, w) in enumerate(zip(got[1:], jw)):
+    for i, (g, w) in enumerate(zip(got[n_tables:], jw)):
         _close(g.numpy().T, w, f"d loss / d decoder weight {i}")
+
+
+def test_later_mapping_loss_and_smoothness_match_jax(models, rays, monkeypatch):
+    """A mapping step after the first adds the smoothness term: the hash
+    encodings' TV over a random sub-grid (both sides get the JAX draws of
+    its offset and jitter), the tri-plane's TV on the planes (no draws).
+    Its weight is 1e-6, so the unweighted TV and its own table gradient
+    are held apart from the total's."""
+    jmodel, params, tmodel = models
+    dirs, ts, td, r0, t0, mask = rays
+    rd = np.asarray(jnp.asarray(dirs) @ jlie.axis_angle_to_matrix(jnp.asarray(r0)).T)
+    ro = np.broadcast_to(t0, rd.shape).copy()
+    key = jax.random.PRNGKey(1)
+    k_smooth = jax.random.split(key)[1]
+    k1, k2 = jax.random.split(k_smooth)
+    draws = [np.asarray(jax.random.uniform(k1, (3,))), np.asarray(jax.random.uniform(k2, (1, 1, 1, 3)))]
+    hashed = tmodel.tp_spec is None
+
+    def feed_draws():  # torch.rand gives the sub-grid's offset, then its jitter
+        queue = list(draws) if hashed else []
+
+        def rand(*size, **kw):
+            want_draw = queue.pop(0)
+            assert tuple(np.atleast_1d(size[0] if len(size) == 1 else size)) == want_draw.shape
+            return torch.tensor(want_draw)
+
+        monkeypatch.setattr(torch, "rand", rand)
+        return queue
+
+    def jloss(p):
+        return jmodel.get_loss(p, key, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(ts), jnp.asarray(td),
+                               jnp.asarray(mask), True, False)
+
+    (want, jparts), grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+    jtv, jtv_grads = jax.jit(jax.value_and_grad(lambda p: jmodel.smoothness(p, k_smooth)))(params)
+    queue = feed_draws()
+    loss, parts = tmodel.get_loss(*(torch.tensor(a) for a in (ro, rd, ts, td, mask)), True, False)
+    assert not queue
+    queue = feed_draws()
+    tv = tmodel.smoothness()
+    assert not queue
+    monkeypatch.undo()
+    assert sorted(parts) == sorted(jparts)
+    for k in parts:
+        if k != "smooth_loss":
+            _close(parts[k].item(), float(jparts[k]), k)
+    _close(loss.item(), float(want), "loss")
+    _close(tv.item(), float(jtv), "smoothness")
+    tables = tmodel.param_groups()["embed_fn"]
+    names = [""] if len(tables) == 1 else list(tmodel.embed_fn.keys())
+    got = torch.autograd.grad(loss, tables)
+    got_tv = torch.autograd.grad(tv, tables)
+    jt, jtv_t = _jax_tables(grads), _jax_tables(jtv_grads)
+    for name, g, gs in zip(names, got, got_tv):
+        _close(g.numpy(), jt[name], f"d loss / d table {name}")
+        _close(gs.numpy(), jtv_t[name], f"d smoothness / d table {name}")
 
 
 def test_query_sdf_matches_jax(models):
@@ -142,9 +222,12 @@ def test_query_sdf_matches_jax(models):
 
 
 def test_unported_encodings_are_refused():
-    for kw in (dict(hash_packed=True), dict(encoding="triplane", hash_packed=False)):
+    # every encoding is ported; a separate color grid is not
+    for enc in ENCODINGS.values():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            JointEncoding(JointEncodingConfig(**kw), Camera(**CAM), BOUND)
+            JointEncoding(JointEncodingConfig(oneGrid=False, **enc), Camera(**CAM), BOUND)
+    with pytest.raises(ValueError, match="encoding"):
+        JointEncoding(JointEncodingConfig(encoding="dense"), Camera(**CAM), BOUND)
 
 
 def test_cuda_request_without_cuda_raises():
@@ -231,3 +314,76 @@ def test_tiny_run_through_the_cli(tmp_path):
     ate = evaluate_ate(list(runner.pipeline.dataset.poses), data["estimate_c2w_list"])
     assert ate["rmse"] * 100 < 6.0, f"ATE {ate['rmse'] * 100:.2f} cm"
     assert runner.pipeline.algorithm.kf_count == 2  # frames 0 and 5
+
+
+IMG_CAM = dict(fx=30.0, fy=30.0, cx=15.5, cy=11.5, height=24, width=32)
+MC_BOUND = [[-1.5, 1.5], [-1.2, 1.2], [-1.0, 1.4]]
+
+
+@pytest.fixture(scope="module", params=["packed", "triplane"])
+def algos(request):
+    """The JAX and the port's CoSLAM at 24x32 with the same parameters and
+    two keyframes (for the mesh's frustum mask), mesher resolution 32."""
+    kw = {**MODEL, **ENCODINGS[request.param]}
+    from xrdslam_tpu.configs.registry import algorithm_configs as jreg
+    from xrdslam_tpu_torch.configs.registry import algorithm_configs as treg
+
+    common = dict(mapping_bound=BOUND.tolist(), marching_cubes_bound=MC_BOUND, ray_batch_size=300)
+    jalgo = JCoSLAMConfig(model=JJointEncodingConfig(**kw), mesher=JMesherConfig(resolution=32),
+                          optimizers=jreg["co-slam"].xrdslam.algorithm.optimizers, **common).setup(
+        camera=JCamera(**IMG_CAM))
+    talgo = CoSLAMConfig(model=JointEncodingConfig(**kw), mesher=MesherConfig(resolution=32),
+                         optimizers=treg["co-slam"].xrdslam.algorithm.optimizers, **common).setup(
+        camera=Camera(**IMG_CAM), device="cpu")
+    params_from_jax(jax.tree_util.tree_map(np.asarray, jalgo.model_params), talgo.model)
+    kf_t = np.array([[0.0, 0.0, 0.0], [0.1, -0.05, 0.2]], np.float32)
+    kf_r = np.array([[0.0, 0.0, 0.0], [0.05, 0.3, -0.02]], np.float32)
+    jalgo.kf_pose_t = jalgo.kf_pose_t.at[:2].set(kf_t)
+    jalgo.kf_pose_r = jalgo.kf_pose_r.at[:2].set(kf_r)
+    talgo.kf_pose_t[:2] = torch.from_numpy(kf_t)
+    talgo.kf_pose_r[:2] = torch.from_numpy(kf_r)
+    jalgo.kf_count = talgo.kf_count = 2
+    return jalgo, talgo
+
+
+def test_render_img_matches_jax(algos):
+    jalgo, talgo = algos
+    rng = np.random.default_rng(5)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, :3] = np.asarray(jlie.axis_angle_to_matrix(jnp.asarray([0.1, -0.2, 0.05])))
+    c2w[:3, 3] = [0.2, -0.1, 0.3]
+    depth = rng.uniform(0.5, 3.0, (IMG_CAM["height"], IMG_CAM["width"])).astype(np.float32)
+    depth[::5, ::3] = 0.0  # invalid depth: the samples fall back to [near, far]
+    for gt in (None, depth):  # uniform samples, then depth-guided
+        want_c, want_d = jalgo.render_img(c2w, gt_depth=gt)
+        got_c, got_d = talgo.render_img(c2w, gt_depth=gt)
+        assert got_c.shape == (24, 32, 3) and got_d.shape == (24, 32)
+        if gt is None:
+            _close(got_c, want_c, "rendered color")
+            _close(got_d, want_d, "rendered depth")
+            continue
+        # The render's mask ends each ray's weights at its first sdf sign
+        # change: where a sample's sdf is within float rounding of zero, the
+        # two packages may end a ray one sample apart. At most 1% of the
+        # pixels may differ so; all others agree to REL.
+        off = ((np.abs(got_c - want_c).max(-1) > REL * np.abs(want_c).max())
+               | (np.abs(got_d - want_d) > REL * np.abs(want_d).max()))
+        assert off.mean() <= 0.01, f"{off.sum()} of {off.size} pixels differ"
+        _close(got_c[~off], want_c[~off], "rendered color")
+        _close(got_d[~off], want_d[~off], "rendered depth")
+
+
+def test_get_mesh_matches_jax(algos):
+    jalgo, talgo = algos
+    want, got = jalgo.get_mesh(), talgo.get_mesh()
+    assert want is not None and got is not None, "the random map has no surface in the grid"
+    assert got.faces.shape == want.faces.shape and got.vertices.shape == want.vertices.shape
+    np.testing.assert_array_equal(got.faces, want.faces)
+    np.testing.assert_allclose(got.vertices, want.vertices, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got.vertex_colors, want.vertex_colors, atol=1e-5, rtol=0)
+    # the keyframes' frusta mask the grid: a mesh of the whole grid is larger
+    talgo.kf_count = 0
+    try:
+        assert talgo.get_mesh().faces.shape[0] > got.faces.shape[0]
+    finally:
+        talgo.kf_count = 2

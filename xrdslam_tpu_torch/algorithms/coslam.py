@@ -1,8 +1,8 @@
 """Co-SLAM: joint coordinate + parametric encoding SLAM, per frame on the device.
 
-Counterpart of ``xrdslam_tpu/algorithms/coslam.py`` (its per-frame path;
-the fused multi-frame super-step is not ported). The structure is the
-reference package's:
+Counterpart of ``xrdslam_tpu/algorithms/coslam.py`` (its per-frame path,
+the full-image render and the mesh; the fused multi-frame super-step is not
+ported). The structure is the reference package's:
 
   * the global keyframe ray store is a fixed-capacity device table
     ``kf_rays [max_kf, R, 7]`` (dirs, rgb, depth) with a host-side count;
@@ -11,7 +11,10 @@ reference package's:
     scatter-adds;
   * the oldest keyframe's pose is fixed by detaching row 0;
   * the current-frame pixel batch of a mapping call has a power-of-two
-    capacity and a mask over the live count (``_cur_cap``).
+    capacity and a mask over the live count (``_cur_cap``);
+  * tracking packs the scene encoding's gather layout once per call
+    (``pack_tables``), as constants: its backward computes no table
+    gradient.
 
 The optimization loops are Python loops of eager device work: no host
 sync inside them; a step's result reaches the host once, when the pipeline
@@ -27,9 +30,12 @@ import torch
 
 from ..common.camera import Camera
 from ..common.frame import Frame
+from ..common.mesher import Mesher, MesherConfig
 from ..engine.optimizers import GroupOptimizers
 from ..models.joint_encoding import JointEncoding, JointEncodingConfig
 from ..ops import lie, lie_np
+from ..ops.frustum import points_in_frustum
+from ..utils.io import Mesh
 from ..ops.sampling import camera_ray_dirs, sample_pixels
 from .base import Algorithm, AlgorithmConfig
 
@@ -40,12 +46,15 @@ MODEL_GROUPS = ("embed_fn", "decoder")
 class CoSLAMConfig(AlgorithmConfig):
     _target: Type = field(default_factory=lambda: CoSLAM)
     model: JointEncodingConfig = field(default_factory=JointEncodingConfig)
+    mesher: MesherConfig = field(default_factory=MesherConfig)
     rays_to_save_ratio: float = 0.05
     tracking_Wedge: int = 20
     tracking_Hedge: int = 20
     mapping_sample: int = 2048
     min_sample_pixels: int = 100
     tracking_sample: int = 1024
+    ray_batch_size: int = 3000  # rays per chunk of render_img
+    marching_cubes_bound: List[List[float]] = field(default_factory=lambda: [[-3.5, 3], [-3, 3], [-3, 3]])
     mapping_bound: List[List[float]] = field(default_factory=lambda: [[-3.5, 3], [-3, 3], [-3, 3]])
     max_keyframes: int = 512  # capacity of the keyframe ray table
     seed: int = 0
@@ -60,6 +69,9 @@ class CoSLAM(Algorithm):
         # model on every device; the run's draws come from a device generator
         init_gen = torch.Generator().manual_seed(config.seed)
         self.model = JointEncoding(config.model, camera, self.bounding_box, generator=init_gen).to(self.device)
+        self.mesher: Mesher = config.mesher.setup(camera=camera, bounding_box=self.bounding_box,
+                                                  marching_cubes_bound=np.asarray(config.marching_cubes_bound,
+                                                                                  np.float32))
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
 
         self._opt_cfgs = {name: g["optimizer"] for name, g in config.optimizers.items()}
@@ -96,14 +108,15 @@ class CoSLAM(Algorithm):
         state = opt.init(params)
         best_loss = torch.full((), 1e10, device=self.device)
         best_t, best_r = t0.clone(), r0.clone()
+        # the tables are constant here: pack them once per call
+        packed = self.model.pack_tables()
         for _ in range(cfg.tracking_n_iters):
             u, v = sample_pixels(cfg.tracking_sample, H, W, cfg.tracking_Hedge, cfg.tracking_Wedge,
                                  self.generator, self.device)
             rays_d = self._dirs[v, u] @ lie.axis_angle_to_matrix(r).T
             rays_o = t.expand(rays_d.shape)
-            # the table is detached: tracking's backward computes no dtable
             loss, _ = self.model.get_loss(rays_o, rays_d, rgb[v, u], depth[v, u][:, None], None, False, False,
-                                          generator=self.generator, detach_table=True)
+                                          generator=self.generator, packed=packed)
             g_r, g_t = torch.autograd.grad(loss, [r, t])
             with torch.no_grad():
                 loss = loss.detach()
@@ -237,3 +250,53 @@ class CoSLAM(Algorithm):
         self.kf_pose_r[slot] = self._pose(keyframe.r)
         self.kf_count += 1
         self.keyframe_fids.append(keyframe.fid)
+
+    # ------------------------------------------------------------------
+    # outputs
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def render_img(self, c2w: np.ndarray, gt_depth: Optional[np.ndarray] = None, idx: Optional[int] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Full-image render at pose ``c2w`` in chunks of ``ray_batch_size``
+        rays: (color [H, W, 3], depth [H, W]). With ``gt_depth`` the samples
+        are placed around it (jittered from the run's generator when
+        training_perturb), else uniformly over [near, far]."""
+        cam = self.camera
+        c2w_t = torch.as_tensor(np.asarray(c2w, np.float32), device=self.device)
+        rays_d = self._dirs.reshape(-1, 3) @ c2w_t[:3, :3].T
+        rays_o = c2w_t[:3, 3].expand(rays_d.shape)
+        gt = None if gt_depth is None else torch.as_tensor(np.asarray(gt_depth, np.float32),
+                                                           device=self.device).reshape(-1, 1)
+        bs = self.config.ray_batch_size
+        depth, color = [], []
+        for i in range(0, rays_d.shape[0], bs):
+            if gt is None:
+                out = self.model.render_rays_no_depth(rays_o[i:i + bs], rays_d[i:i + bs])
+            else:
+                out = self.model.render_rays(rays_o[i:i + bs], rays_d[i:i + bs], gt[i:i + bs], self.generator)
+            depth.append(out["depth"])
+            color.append(out["rgb"])
+        return (torch.cat(color).reshape(cam.height, cam.width, 3).cpu().numpy(),
+                torch.cat(depth).reshape(cam.height, cam.width).cpu().numpy())
+
+    @torch.no_grad()
+    def get_mesh(self) -> Optional[Mesh]:
+        """The mesh of the SDF's zero level over ``marching_cubes_bound``,
+        vertex colors from the color net, grid cells outside every
+        keyframe's frustum (up to cam_far) masked out."""
+        kf_mask_fn = None
+        if self.kf_count > 0:
+            kf_t, kf_r = self.kf_pose_t.cpu().numpy(), self.kf_pose_r.cpu().numpy()
+            kf_c2w = [lie_np.pose_vec_to_matrix(kf_t[i], kf_r[i], rot_rep="axis_angle") for i in range(self.kf_count)]
+            far = self.config.model.cam_far
+
+            def kf_mask_fn(pts):
+                return points_in_frustum(pts, kf_c2w, self.camera, near=0.0, far=far)
+
+        def query(fn):
+            return lambda pts: fn(torch.as_tensor(pts, device=self.device)).cpu().numpy()
+
+        return self.mesher.get_mesh(
+            query_fn=query(self.model.query_sdf),
+            color_fn=query(self.model.query_color),
+            point_mask_fn=kf_mask_fn)

@@ -5,7 +5,8 @@ and the furnished 6 x 4 x 5 m "office", with their trajectories). Depth is
 sphere-traced on the run's device with the reference's settings (96 steps,
 step factor 0.9, far 8 m, hit below 5e-3); colors are the same procedural
 palettes, in numpy. Camera convention: OpenGL (-z forward); c2w poses carry
-no axis flips.
+no axis flips. ``gt_mesh`` gives the scene's exact mesh (marching
+tetrahedra of the analytic SDF) for the 3D reconstruction metrics.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from ..ops.marching_tets import marching_tetrahedra
+from ..utils.io import Mesh
 from .camera import Camera
 
 ROOM_HALF = np.array([2.0, 2.0, 2.0])
@@ -70,6 +73,31 @@ def sphere_trace(origins: torch.Tensor, dirs: torch.Tensor, n_steps: int = 96, f
         t = torch.clamp(t + torch.clamp(sd, min=1e-4) * 0.9, max=far)
     hit = sdf(origins + dirs * t[..., None]) < 5e-3
     return torch.where(hit, t, 0.0)
+
+
+def _sdf_mesh(scene: str, half: np.ndarray, voxel: float, device: str) -> Mesh:
+    """Marching tetrahedra of a scene's SDF on a ``voxel`` grid over
+    [-half, half] (evaluated on ``device`` in chunks of 2^20 points)."""
+    xs = [np.arange(-h, h + voxel, voxel, dtype=np.float32) for h in half]
+    gx, gy, gz = np.meshgrid(xs[0], xs[1], xs[2], indexing="ij")
+    pts = np.stack([gx, gy, gz], -1).reshape(-1, 3)
+    vals = np.empty(pts.shape[0], np.float32)
+    bs = 1 << 20
+    for i in range(0, pts.shape[0], bs):
+        vals[i:i + bs] = SCENE_SDF[scene](torch.as_tensor(pts[i:i + bs], device=device)).cpu().numpy()
+    verts, faces = marching_tetrahedra(vals.reshape(gx.shape), level=0.0, origin=(xs[0][0], xs[1][0], xs[2][0]),
+                                       spacing=(voxel, voxel, voxel))
+    return Mesh(verts, faces, None)
+
+
+def simple_gt_mesh(voxel: float = 0.05, device: str = "cpu") -> Mesh:
+    """Exact mesh of the simple scene (room + two objects)."""
+    return _sdf_mesh("simple", ROOM_HALF + 0.02, voxel, device)
+
+
+def office_gt_mesh(voxel: float = 0.02, device: str = "cpu") -> Mesh:
+    """Exact mesh of the office."""
+    return _sdf_mesh("office", OFFICE_HALF + 0.02, voxel, device)
 
 
 def scene_color(p: np.ndarray) -> np.ndarray:
@@ -211,3 +239,11 @@ class SyntheticDataset:
         return np.array([[-half[0] - m, half[0] + m],
                          [-half[1] - m, half[1] + m],
                          [-half[2] - m, half[2] + m]], np.float32)
+
+    def gt_mesh(self, voxel: float = 0.02) -> Mesh:
+        """The scene's exact mesh for the 3D reconstruction metrics (the
+        synthetic stand-in for Replica's culled ground truth), its SDF
+        evaluated on the dataset's device."""
+        if self.scene == "office":
+            return office_gt_mesh(voxel, str(self.device))
+        return simple_gt_mesh(max(voxel, 0.05), str(self.device))

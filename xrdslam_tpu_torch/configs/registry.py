@@ -1,9 +1,10 @@
 """Algorithm registry: full default config trees per algorithm.
 
 Counterpart of ``xrdslam_tpu/configs/registry.py`` for the ported
-algorithms, with the reference package's hyperparameters: Co-SLAM with the
-exact per-vertex hash (``hash_packed=False``; per-scene bounds default to
-Replica office0 and are CLI-overridable), SplaTAM, and Point-SLAM (its
+algorithms, with the reference package's hyperparameters: Co-SLAM (the
+reference's entry: the packed patch-row hash, per-scene bounds of Replica
+office0, CLI-overridable; the ``embed_fn_color`` optimizer group is left
+out while ``oneGrid=False`` is not ported), SplaTAM, and Point-SLAM (its
 decoders train from scratch: the pretrained ``middle_fine.pt`` that the
 reference entry names is not in the repository). Knobs that nothing in the
 port reads yet are left out of each entry.
@@ -15,6 +16,7 @@ from typing import Dict
 from ..algorithms.coslam import CoSLAMConfig
 from ..algorithms.point_slam import PointSLAMConfig
 from ..algorithms.splatam import SplaTAMConfig
+from ..common.mesher import MesherConfig
 from ..engine.optimizers import AdamOptimizerConfig
 from ..engine.runner import RunnerConfig
 from ..engine.schedulers import PointSLAMSchedulerConfig
@@ -26,7 +28,7 @@ from ..pipeline.slam import MapperConfig, SLAMPipelineConfig, TrackerConfig
 algorithm_configs: Dict[str, RunnerConfig] = {}
 
 descriptions = {
-    "co-slam": "Implementation of co-slam (exact hash grid, CUDA kernels).",
+    "co-slam": "Implementation of co-slam (packed hash grid; the exact hash and the triplane by option).",
     "splaTAM": "Implementation of splaTAM (tile rasterizer, CUDA kernels).",
     "point-slam": "Implementation of point-slam (spatial-hash kNN with a CUDA row gather).",
 }
@@ -44,12 +46,15 @@ algorithm_configs["co-slam"] = RunnerConfig(
             mapping_sample=2048,
             tracking_sample=1024,
             min_sample_pixels=100,
+            ray_batch_size=30720,
             tracking_Wedge=20,
             tracking_Hedge=20,
             # Replica office0 bounds
             mapping_bound=[[-3, 3], [-4, 2.5], [-2, 2.5]],
+            marching_cubes_bound=[[-2.2, 2.6], [-3.4, 2.1], [-1.4, 2.0]],
             max_keyframes=512,
-            model=JointEncodingConfig(cam_depth_trunc=100.0, hash_packed=False),
+            mesher=MesherConfig(resolution=256, points_batch_size=30000),
+            model=JointEncodingConfig(cam_depth_trunc=100.0),
             optimizers={
                 "decoder": {"optimizer": AdamOptimizerConfig(lr=1e-2, weight_decay=1e-6, betas=(0.9, 0.99)), "scheduler": None},
                 "embed_fn": {"optimizer": AdamOptimizerConfig(lr=1e-2, eps=1e-15, betas=(0.9, 0.99)), "scheduler": None},

@@ -79,17 +79,21 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def bind(name: str, signatures: Dict[str, List[type]]) -> ctypes.CDLL:
-    """The library of ``<name>.cu`` with ``argtypes`` set for each of its
-    functions (every one returns an int error code) and for
-    ``xr_cuda_error_string``."""
+    """The library of ``<name>.cu`` with ``argtypes`` set for each function
+    in ``signatures`` (every one returns an int error code) and for
+    ``xr_cuda_error_string``. Wrappers of one library may bind different
+    functions of it; each is typed once."""
     lib = load(name)
-    if not getattr(lib, "_xr_typed", False):
-        for fn, args in signatures.items():
+    typed = lib.__dict__.setdefault("_xr_typed", set())
+    for fn, args in signatures.items():
+        if fn not in typed:
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
+            typed.add(fn)
+    if "xr_cuda_error_string" not in typed:
         lib.xr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.xr_cuda_error_string.restype = ctypes.c_char_p
-        lib._xr_typed = True
+        typed.add("xr_cuda_error_string")
     return lib
 
 

@@ -1,28 +1,37 @@
 // Multiresolution hash-grid encoding for Hopper (sm_90a).
 //
-// Replaces the three Pallas kernels of the exact per-vertex hash grid
-// (xrdslam_tpu/ops/hashgrid_fast.py):
-//   K1 _trilerp_fwd_kernel (:202)  -> hashgrid_fwd_kernel, with the corner
-//      gather fused in (on the TPU the gather was an XLA op, _gather_feats);
-//   K2 _trilerp_bwd_kernel (:216)  -> hashgrid_bwd_kernel, dx part;
-//   K3 _dtable_kernel      (:95)   -> hashgrid_bwd_kernel, dtable part.
+// Replaces the five Pallas kernels of the per-vertex hash grid. From
+// xrdslam_tpu/ops/hashgrid_fast.py (table [L, T, 2], tcnn's layout):
+//   K1 _trilerp_fwd_kernel (:202)  -> hashgrid_fwd_kernel<false>, with the
+//      corner gather fused in (on the TPU the gather was an XLA op);
+//   K2 _trilerp_bwd_kernel (:216)  -> hashgrid_bwd_kernel<false>, dx part;
+//   K3 _dtable_kernel      (:95)   -> hashgrid_bwd_kernel<false>, dtable part.
+// From xrdslam_tpu/ops/pallas_hashgrid.py (the TPU's plane layout
+// [L, 2, T/128, 128], entry e of feature f at planes[l, f, e >> 7, e & 127],
+// which is [L, 2, T] in memory):
+//   K8 _fwd_kernel (:103)          -> hashgrid_fwd_kernel<true>;
+//   K9 _bwd_kernel (:123)          -> hashgrid_bwd_kernel<true>, dx and
+//      dplanes (on the TPU one-hot MXU matmuls; here fp32 atomics).
+// The two layouts differ only in where an entry's two features live (the
+// Entry helpers below); the cell, hash and trilinear code is shared.
 //
-// Layouts follow the reference package: table [L, T, 2] f32, x [N, 3] f32,
-// encoding [N, L*2] f32, dx [N, 3] f32, dtable [L, T, 2] f32.
+// Other layouts: x [N, 3] f32, encoding [N, L*2] f32, dx [N, 3] f32; the
+// table gradient has the table's layout.
 //
 // What bounds it on this card: every (point, level) reads 8 random 8-byte
-// table rows (and in the backward adds 16 floats to random rows), so the
+// table entries (and in the backward adds 16 floats to random entries), so the
 // kernels are bound by memory latency, not by arithmetic or bandwidth. The
 // design keeps the traffic to those rows and nothing else: one thread per
 // (point, level) with the level fastest, so the threads of one point sit in
 // one warp, read x once through the cache and write the point's encoding as
-// one contiguous run; each row is read as one float2; no [L, 2, 8, N]
+// one contiguous run; each [L, T, 2] entry is read as one float2 (a plane
+// entry as two floats T apart: two 4-byte loads); no [L, 2, 8, N]
 // feature residual is saved (the backward re-gathers, which costs the same
 // rows the TPU's residual would have re-read from device memory).
 //
-// dx (K2) is the gradient at the clamped point with no mask outside
-// [0,1]^3, exactly as the TPU kernel computes it. The per-level terms of a
-// point are summed with fp32 atomics; so is dtable (K3). Atomic sums are
+// dx (K2, K9) is the gradient at the clamped point with no mask outside
+// [0,1]^3, exactly as the TPU kernels compute it. The per-level terms of a
+// point are summed with fp32 atomics; so is dtable (K3, K9). Atomic sums are
 // not deterministic: their order, and so their last bits, change from run
 // to run.
 //
@@ -65,6 +74,22 @@ __device__ __forceinline__ uint32_t corner_row(uint32_t gx, uint32_t gy, uint32_
   return ((gx * 1u) ^ (gy * 2654435761u) ^ (gz * 805459861u)) & mask;
 }
 
+// Entry e's two features within a level's 2T floats: adjacent in [L, T, 2]
+// (one 8-byte load), T apart in the plane layout [L, 2, T].
+template <bool kPlanes>
+__device__ __forceinline__ float2 load_entry(const float* __restrict__ level, uint32_t e, uint32_t t) {
+  if (kPlanes) return make_float2(__ldg(level + e), __ldg(level + t + e));
+  return __ldg(reinterpret_cast<const float2*>(level) + e);
+}
+
+template <bool kPlanes>
+__device__ __forceinline__ void add_entry(float* level, uint32_t e, uint32_t t, float a, float b) {
+  float* d = kPlanes ? level + e : level + 2 * e;
+  atomicAdd(d, a);
+  atomicAdd(d + (kPlanes ? t : 1u), b);
+}
+
+template <bool kPlanes>
 __global__ void __launch_bounds__(kThreads)
 hashgrid_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
                     float* __restrict__ out, int64_t n, Levels lv) {
@@ -80,20 +105,22 @@ hashgrid_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x
   cell_axis(__ldg(x + 3 * p + 0), res, &fx, &ix);
   cell_axis(__ldg(x + 3 * p + 1), res, &fy, &iy);
   cell_axis(__ldg(x + 3 * p + 2), res, &fz, &iz);
-  const float2* rows = reinterpret_cast<const float2*>(table) + ((int64_t)l << lv.log2_t);
+  const uint32_t tsize = 1u << lv.log2_t;
+  const float* level = table + ((int64_t)l << (lv.log2_t + 1));
   float a0 = 0.0f, a1 = 0.0f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int cx = c >> 2, cy = (c >> 1) & 1, cz = c & 1;
     const uint32_t e = corner_row(ix + cx, iy + cy, iz + cz, (uint32_t)res, dense, mask);
     const float w = (cx ? fx : 1.0f - fx) * (cy ? fy : 1.0f - fy) * (cz ? fz : 1.0f - fz);
-    const float2 f = __ldg(rows + e);
+    const float2 f = load_entry<kPlanes>(level, e, tsize);
     a0 += w * f.x;
     a1 += w * f.y;
   }
   reinterpret_cast<float2*>(out)[t] = make_float2(a0, a1);
 }
 
+template <bool kPlanes>
 __global__ void __launch_bounds__(kThreads)
 hashgrid_bwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
                     const float* __restrict__ g, float* __restrict__ dx,
@@ -112,8 +139,9 @@ hashgrid_bwd_kernel(const float* __restrict__ table, const float* __restrict__ x
   cell_axis(__ldg(x + 3 * p + 1), res, &fy, &iy);
   cell_axis(__ldg(x + 3 * p + 2), res, &fz, &iz);
   const float2 gg = __ldg(reinterpret_cast<const float2*>(g) + t);
-  const int64_t level_off = (int64_t)l << lv.log2_t;
-  const float2* rows = reinterpret_cast<const float2*>(table) + level_off;
+  const uint32_t tsize = 1u << lv.log2_t;
+  const int64_t level_off = (int64_t)l << (lv.log2_t + 1);
+  const float* level = table + level_off;
   float ddx = 0.0f, ddy = 0.0f, ddz = 0.0f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
@@ -124,12 +152,10 @@ hashgrid_bwd_kernel(const float* __restrict__ table, const float* __restrict__ x
     const float wz = cz ? fz : 1.0f - fz;
     if (dtable != nullptr) {
       const float w = wx * wy * wz;
-      float* d = dtable + 2 * (level_off + e);
-      atomicAdd(d, w * gg.x);
-      atomicAdd(d + 1, w * gg.y);
+      add_entry<kPlanes>(dtable + level_off, e, tsize, w * gg.x, w * gg.y);
     }
     if (dx != nullptr) {
-      const float2 f = __ldg(rows + e);
+      const float2 f = load_entry<kPlanes>(level, e, tsize);
       const float gf = gg.x * f.x + gg.y * f.y;
       ddx += gf * ((cx ? wy : -wy) * wz * resf);
       ddy += gf * (wx * (cy ? 1.0f : -1.0f) * wz * resf);
@@ -156,6 +182,27 @@ int make_levels(int n_levels, int log2_t, const int* res, const int* dense, Leve
 
 unsigned int n_blocks(int64_t threads) { return (unsigned int)((threads + kThreads - 1) / kThreads); }
 
+template <bool kPlanes>
+int launch_fwd(const float* table, const float* x, float* out, long long n, int n_levels, int log2_t,
+               const int* res, const int* dense, void* stream) {
+  Levels lv;
+  int err = make_levels(n_levels, log2_t, res, dense, &lv);
+  if (err != 0 || n == 0) return err;
+  hashgrid_fwd_kernel<kPlanes><<<n_blocks(n * n_levels), kThreads, 0, (cudaStream_t)stream>>>(table, x, out, n, lv);
+  return (int)cudaGetLastError();
+}
+
+template <bool kPlanes>
+int launch_bwd(const float* table, const float* x, const float* g, float* dx, float* dtable, long long n,
+               int n_levels, int log2_t, const int* res, const int* dense, void* stream) {
+  Levels lv;
+  int err = make_levels(n_levels, log2_t, res, dense, &lv);
+  if (err != 0 || n == 0 || (dx == nullptr && dtable == nullptr)) return err;
+  hashgrid_bwd_kernel<kPlanes><<<n_blocks(n * n_levels), kThreads, 0, (cudaStream_t)stream>>>(
+      table, x, g, dx, dtable, n, lv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -163,11 +210,7 @@ extern "C" {
 // table [L, 2^log2_t, 2], x [n, 3] -> out [n, L*2]. res/dense: host arrays of L ints.
 int xr_hashgrid_fwd(const float* table, const float* x, float* out, long long n, int n_levels,
                     int log2_t, const int* res, const int* dense, void* stream) {
-  Levels lv;
-  int err = make_levels(n_levels, log2_t, res, dense, &lv);
-  if (err != 0 || n == 0) return err;
-  hashgrid_fwd_kernel<<<n_blocks(n * n_levels), kThreads, 0, (cudaStream_t)stream>>>(table, x, out, n, lv);
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(table, x, out, n, n_levels, log2_t, res, dense, stream);
 }
 
 // g [n, L*2] -> dx [n, 3] and/or dtable [L, 2^log2_t, 2], each accumulated
@@ -176,12 +219,20 @@ int xr_hashgrid_fwd(const float* table, const float* x, float* out, long long n,
 int xr_hashgrid_bwd(const float* table, const float* x, const float* g, float* dx, float* dtable,
                     long long n, int n_levels, int log2_t, const int* res, const int* dense,
                     void* stream) {
-  Levels lv;
-  int err = make_levels(n_levels, log2_t, res, dense, &lv);
-  if (err != 0 || n == 0 || (dx == nullptr && dtable == nullptr)) return err;
-  hashgrid_bwd_kernel<<<n_blocks(n * n_levels), kThreads, 0, (cudaStream_t)stream>>>(table, x, g, dx, dtable,
-                                                                                       n, lv);
-  return (int)cudaGetLastError();
+  return launch_bwd<false>(table, x, g, dx, dtable, n, n_levels, log2_t, res, dense, stream);
+}
+
+// The same two functions on the plane layout planes [L, 2, 2^log2_t]
+// (K8, K9); dplanes has the planes' layout.
+int xr_hashgrid_planes_fwd(const float* planes, const float* x, float* out, long long n, int n_levels,
+                           int log2_t, const int* res, const int* dense, void* stream) {
+  return launch_fwd<true>(planes, x, out, n, n_levels, log2_t, res, dense, stream);
+}
+
+int xr_hashgrid_planes_bwd(const float* planes, const float* x, const float* g, float* dx, float* dplanes,
+                           long long n, int n_levels, int log2_t, const int* res, const int* dense,
+                           void* stream) {
+  return launch_bwd<true>(planes, x, g, dx, dplanes, n, n_levels, log2_t, res, dense, stream);
 }
 
 const char* xr_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -95,7 +95,8 @@ def _lib():
                                      "xr_hashgrid_bwd": [p, p, p, p, p, ll, i, i, p, p, p]})
 
 
-def _level_args(spec: HashGridSpec):
+def level_args(spec: HashGridSpec):
+    """The per-level resolutions and dense flags as ctypes int arrays."""
     if spec not in _LEVEL_ARGS:
         arr = ctypes.c_int * spec.n_levels
         _LEVEL_ARGS[spec] = (arr(*spec.resolutions), arr(*[int(d) for d in spec.dense]))
@@ -116,7 +117,7 @@ def _check_cuda_inputs(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec)
             raise ValueError(f"{name} must be contiguous float32 on {x.device}")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
+def float2_aligned(t: torch.Tensor) -> torch.Tensor:
     """The kernels read table rows and g pairs as float2: 8-byte aligned."""
     return t if t.data_ptr() % 8 == 0 else t.clone()
 
@@ -126,9 +127,9 @@ def hashgrid_fwd(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec) -> to
     if kernels.on_cpu(x, "hash-grid encoding"):
         return hashgrid_fwd_torch(table, x, spec)
     _check_cuda_inputs(table, x, spec)
-    table = _aligned(table)
+    table = float2_aligned(table)
     lib = _lib()
-    res, dense = _level_args(spec)
+    res, dense = level_args(spec)
     out = torch.empty((x.shape[0], spec.out_dim), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.xr_hashgrid_fwd(table.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], spec.n_levels,
@@ -149,11 +150,11 @@ def hashgrid_bwd(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, spec: Ha
     _check_cuda_inputs(table, x, spec)
     if g.shape != (x.shape[0], spec.out_dim) or g.dtype != torch.float32 or g.device != x.device:
         raise ValueError(f"g must be float32 [{x.shape[0]}, {spec.out_dim}] on {x.device}")
-    table, g = _aligned(table), _aligned(g.contiguous())
+    table, g = float2_aligned(table), float2_aligned(g.contiguous())
     if not (need_dtable or need_dx):
         return None, None
     lib = _lib()
-    res, dense = _level_args(spec)
+    res, dense = level_args(spec)
     dtable = torch.zeros_like(table) if need_dtable else None
     dx = torch.zeros((x.shape[0], 3), dtype=torch.float32, device=x.device) if need_dx else None
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -5,8 +5,10 @@
 ``log_scales``) with numpy leaves, and optionally its ``dead`` mask and
 ``count``, and returns the port's tensors. ``params_from_jax`` takes the
 reference Co-SLAM ``model_params`` tree with its leaves as numpy arrays
-(``{"embed_fn": {"table": [L,T,F]}, "decoder": {"sdf": {"w": [...]},
-"color": {"w": [...]}}}``, each ``w`` ``[in, out]``) and copies it into a
+(``{"embed_fn": {"table": ...}, "decoder": {"sdf": {"w": [...]}, "color":
+{"w": [...]}}}``, each ``w`` ``[in, out]``; the table is ``[L, T, F]`` for
+the exact hash, a dict of ``v{l}`` / ``h{l}`` tables for the packed hash
+and of ``s{i}`` planes for the tri-plane) and copies it into a
 ``JointEncoding``. Linear weights are transposed to
 ``nn.Linear``'s ``[out, in]``. ``pointslam_params_from_jax`` takes the
 reference Point-SLAM ``params`` tree (``{"geometry": {"feats"}, "color":
@@ -36,7 +38,16 @@ def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
 
 @torch.no_grad()
 def params_from_jax(np_tree: Dict[str, Any], model: JointEncoding) -> JointEncoding:
-    _copy(model.table, np_tree["embed_fn"]["table"], "embed_fn.table")
+    table = np_tree["embed_fn"]["table"]
+    if isinstance(model.embed_fn, torch.nn.Parameter):
+        _copy(model.embed_fn, table, "embed_fn.table")
+    else:
+        names = sorted(table) if isinstance(table, dict) else None
+        if names != sorted(model.embed_fn):
+            raise ValueError(f"embed_fn.table: the reference's tables {names} do not match the model's "
+                             f"{sorted(model.embed_fn)}")
+        for k, v in table.items():
+            _copy(model.embed_fn[k], v, f"embed_fn.table.{k}")
     for net, name in ((model.sdf_net, "sdf"), (model.color_net, "color")):
         ws = np_tree["decoder"][name]["w"]
         if len(ws) != len(net.layers) or "b" in np_tree["decoder"][name]:
