@@ -8,14 +8,17 @@
 3. Holds each kernel against its plain PyTorch twin at the shapes of the
    main paths and times both with CUDA events (median of 20 runs, twin,
    kernel, kernel, twin), beside its bound (the least time the card could
-   take, from the bytes it must move and the operations it must do):
+   take, from the bytes it must move and the operations it must do, on
+   the float32 and on the special-function units):
    the hash-grid kernels K1-K3 at Co-SLAM's mapping shapes (N = 176,128
    points, some outside [0,1]^3) and the plane-layout hash-grid kernels
    K8/K9 at the same shapes (nothing in the repository calls them: they
    are held at function level); the rasterizer K5/K6 and the scatter-add
    K4 on gaussians grown from an office frame at 600x340 and binned at its
    pose (836 tiles, K = 256, 131,072 rows), with a seeded random upstream
-   gradient. K4 is also timed against ``Tensor.index_add_``. The row
+   gradient, and K5/K6 again binned with K = 512 (the SplaTAM gate's);
+   K5/K6 also by device time. K4 is also timed against
+   ``Tensor.index_add_``. The row
    gather K7 at Point-SLAM's mapping shape: the union rows of the point map
    grown from office frame 0 at 600x340 (registry settings), gathered for
    the 24,960 surface samples of 4,992 rays (bit for bit against the twin,
@@ -46,7 +49,7 @@
    each main path launched (the launch counts are zeroed just before each
    run and read just after).
 5. Profiles one tracking and one mapping call of each run on a main path
-   with torch.profiler
+   and of SplaTAM's K = 512 run with torch.profiler
    (Point-SLAM's mapping call with 60 iterations): wall time, device busy
    time and the kernels that take it. ``[elapsed]`` lines stamp the
    phases.
@@ -61,6 +64,18 @@ builds the kernels and measures SplaTAM's registry run against one change
 at a time (``SLOTS_PROBE``: a larger table, more slots per tile, the JAX
 package's smoke schedule), the evidence behind ``SPLATAM_GATE``; it prints
 one JSON line per setting and no result line.
+
+    python3 chip_smoke.py --raster-variants
+
+builds the rasterizer with one change at a time (``RASTER_VARIANTS``) and
+times each beside the shipped K5/K6 on the grown office frame at K = 256
+and 512 (``[variant]`` lines, no result line): what each part of the
+kernels' design costs or saves.
+
+    python3 chip_smoke.py --pointslam-repeat N
+
+runs Point-SLAM's gated main path N times and prints each run's ATE beside
+its gate (nothing gated, no result line): the spread between runs.
 """
 from __future__ import annotations
 
@@ -123,9 +138,12 @@ FROZEN_ATE_SHARE = 0.5
 FWD_ATOL = 1e-5
 BWD_RTOL = 1e-4  # of max |twin|: sums in another order (fp32 atomics in K2-K4)
 # NVIDIA H100 SXM, published peaks (data sheet): HBM rate and float32 rate
-# outside the tensor cores, the rate of the kernels' arithmetic
+# outside the tensor cores, the rate of the kernels' arithmetic; and the
+# special-function units' rate (exp, log, reciprocal): 16 a clock on each
+# of the 132 SMs at the 1.98 GHz boost clock
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -173,10 +191,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(bound ms, what bounds it): the larger of bytes over the memory rate
-    and operations over the float32 rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_F32_OPS_PER_S
+def bound(n_bytes: float, n_ops: float, n_sfu: float = 0.0):
+    """(bound ms, what bounds it): the largest of bytes over the memory
+    rate, float32 operations over the float32 rate and special-function
+    operations over the special-function rate ("operations" for both)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, max(n_ops / PEAK_F32_OPS_PER_S, n_sfu / PEAK_SFU_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -413,17 +432,29 @@ def coverage(sil, depth):
 
 
 def check_raster(device):
-    """K5, K6, K4 vs twins on a grown office frame; returns the records."""
+    """K5, K6 (at the registry's K = 256 and the gate's 512) and K4 vs
+    twins on a grown office frame; returns the records."""
+    import torch
+
+    records = check_raster_at(device, 256, with_scatter=True)
+    torch.cuda.empty_cache()
+    return records + check_raster_at(device, SPLATAM_GATE["algorithm.model.k_per_tile"], with_scatter=False)
+
+
+def raster_inputs(device, k_per_tile: int):
+    """K5/K6's inputs on the main path's data: the gaussians grown from
+    office frame 0, binned with ``k_per_tile`` slots, packed; and a seeded
+    random upstream gradient. (tiled, gout, tile ids, tile mask, table
+    rows, the frame's depth)."""
     import torch
 
     from xrdslam_tpu_torch.ops import gaussian_raster as gr
-    from xrdslam_tpu_torch.ops import scatter as sc
 
-    algo, params, dead, w2c, tiles, mask, count, frame_depth = grown_office_frame(device)
+    algo, params, dead, w2c, tiles, mask, count, frame_depth = grown_office_frame(
+        device, {"k_per_tile": k_per_tile})
     ntx, nty = algo.ntx, algo.nty
-    n_tiles, k = tiles.shape
     G = algo.config.model.max_gaussians
-    print(f"[raster] grown {count} gaussians; {n_tiles} tiles ({ntx} x {nty}), K = {k}, "
+    print(f"[raster] grown {count} gaussians; {tiles.shape[0]} tiles ({ntx} x {nty}), K = {tiles.shape[1]}, "
           f"{int(mask.sum())} of {mask.numel()} slots used")
     u, v, depth, sigma = algo.model.project(params, w2c)
     opacity = torch.sigmoid(params["logit_opacities"][:, 0]) * algo.model.alive_mask(dead, count)
@@ -432,70 +463,96 @@ def check_raster(device):
     tiled = gr._pack_tile_data(u, v, sigma, opacity, ch, tiles, mask)
     gen = torch.Generator(device=device).manual_seed(0)
     gout = torch.randn((nty * 16, ntx * 16, gr.N_CH), generator=gen, device=device)
+    return tiled, gout, tiles, mask, G, frame_depth
 
+
+def check_raster_at(device, k_per_tile: int, with_scatter: bool):
+    """K5 and K6 (and K4, ``with_scatter``) against their twins on the
+    gaussians grown from office frame 0 and binned with ``k_per_tile``
+    slots; times each (K5 and K6 also by device time) and returns the
+    records, named with a ``[k<K>]`` suffix away from the registry's K."""
+    import torch
+
+    from xrdslam_tpu_torch.ops import gaussian_raster as gr
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    tiled, gout, tiles, mask, G, frame_depth = raster_inputs(device, k_per_tile)
+    ntx, nty = gout.shape[1] // 16, gout.shape[0] // 16
+    k = tiles.shape[1]
+    tag = "" if k == 256 else f"[k{k}]"
     out_k = gr.raster_fwd(tiled, ntx, nty)
-    # the fresh map as the registry's slots render it (see SPLATAM_GATE)
+    # the fresh map as these slots render it (see SPLATAM_GATE)
     print(f"[coverage] grown frame at K = {k}: {json.dumps(coverage(out_k[..., 4], frame_depth))}")
-    dg_k = gr.raster_bwd(tiled, gout, ntx, nty)
-    idx = tiles.reshape(-1).contiguous()
+    dg_k = gr.raster_bwd(tiled, gout, out_k, ntx, nty)
     torch.cuda.synchronize()
     out_t = gr.raster_fwd_torch(tiled, ntx, nty)
-    dg_t = gr.raster_bwd_torch(tiled, gout, ntx, nty)
-    g_rows = dg_t.reshape(-1, gr.ROW).contiguous()  # K4's input on the main path: K6's output
-    acc_k = sc.scatter_add(idx, g_rows, G)
-    acc_t = sc.scatter_add_torch(idx, g_rows, G)
-    torch.cuda.synchronize()
-    err = {"raster_fwd": float((out_k - out_t).abs().max()), "raster_bwd": float((dg_k - dg_t).abs().max()),
-           "scatter_add": float((acc_k - acc_t).abs().max())}
-    scale = {"raster_fwd": float(out_t.abs().max()), "raster_bwd": float(dg_t.abs().max()),
-             "scatter_add": float(acc_t.abs().max())}
-    limit = {"raster_fwd": FWD_ATOL, "raster_bwd": BWD_RTOL * scale["raster_bwd"],
-             "scatter_add": BWD_RTOL * scale["scatter_add"]}
+    dg_t = gr.raster_bwd_torch(tiled, gout, out_t, ntx, nty)
+    err = {"raster_fwd": float((out_k - out_t).abs().max()), "raster_bwd": float((dg_k - dg_t).abs().max())}
+    scale = {"raster_fwd": float(out_t.abs().max()), "raster_bwd": float(dg_t.abs().max())}
+    limit = {"raster_fwd": FWD_ATOL, "raster_bwd": BWD_RTOL * scale["raster_bwd"]}
+    if with_scatter:
+        idx = tiles.reshape(-1).contiguous()
+        g_rows = dg_t.reshape(-1, gr.ROW).contiguous()  # K4's input on the main path: K6's output
+        acc_k = sc.scatter_add(idx, g_rows, G)
+        acc_t = sc.scatter_add_torch(idx, g_rows, G)
+        torch.cuda.synchronize()
+        err["scatter_add"] = float((acc_k - acc_t).abs().max())
+        scale["scatter_add"] = float(acc_t.abs().max())
+        limit["scatter_add"] = BWD_RTOL * scale["scatter_add"]
     for name in err:
-        check(name, err[name], limit[name], scale[name])
+        check(name + tag, err[name], limit[name], scale[name])
     del out_t, dg_t
-
-    lib_out = torch.empty((G, gr.ROW), device=device)
-
-    def library():
-        lib_out.zero_()
-        lib_out.index_add_(0, idx, g_rows)
 
     ms = {
         "raster_fwd": interleaved(lambda: gr.raster_fwd(tiled, ntx, nty), lambda: gr.raster_fwd_torch(tiled, ntx, nty)),
-        "raster_bwd": interleaved(lambda: gr.raster_bwd(tiled, gout, ntx, nty),
-                                  lambda: gr.raster_bwd_torch(tiled, gout, ntx, nty)),
-        "scatter_add": interleaved(lambda: sc.scatter_add(idx, g_rows, G), lambda: sc.scatter_add_torch(idx, g_rows, G)),
+        "raster_bwd": interleaved(lambda: gr.raster_bwd(tiled, gout, out_k, ntx, nty),
+                                  lambda: gr.raster_bwd_torch(tiled, gout, out_k, ntx, nty)),
     }
-    lib_ms = min(cuda_ms(library), cuda_ms(library))
+    dev_ms = {"raster_fwd": device_ms(lambda: gr.raster_fwd(tiled, ntx, nty)),
+              "raster_bwd": device_ms(lambda: gr.raster_bwd(tiled, gout, out_k, ntx, nty))}
+    lib_ms = {"raster_fwd": None, "raster_bwd": None}
+    if with_scatter:
+        ms["scatter_add"] = interleaved(lambda: sc.scatter_add(idx, g_rows, G),
+                                        lambda: sc.scatter_add_torch(idx, g_rows, G))
+        lib_out = torch.empty((G, gr.ROW), device=device)
+
+        def library():
+            lib_out.zero_()
+            lib_out.index_add_(0, idx, g_rows)
+
+        lib_ms["scatter_add"] = min(cuda_ms(library), cuda_ms(library))
+        print(f"[time] scatter_add : index_add_ {lib_ms['scatter_add']:.4f} ms")
     for name, (k_ms, t_ms) in ms.items():
-        print(f"[time] {name:12s}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms")
-    print(f"[time] scatter_add : index_add_ {lib_ms:.4f} ms")
-    # Bounds. Pairs: (pixel, used slot), 256 pixels per used slot; unused
-    # slots need no work. Operations per pair, float, exp and log1p counted
-    # as one each: forward 28 (offset 2, r^2 3, scale 1, exp 1, opacity 1,
-    # clamp 2, exp of the running log 1, weight 1, 8 channel multiply-adds 16,
-    # log1p 1, running sum 1 - the clamp counted once); backward 60 (the
+        dev = f", device {dev_ms[name]:.4f} ms" if name in dev_ms else ""
+        print(f"[time] {name + tag:12s}: kernel {k_ms:.4f} ms{dev}, twin {t_ms:.4f} ms")
+    # Bounds: the work of one walk over the live (pixel, slot) pairs, 256
+    # pixels per live slot; masked slots need no work. Float32 operations
+    # per pair: forward 28 (offset 2, r^2 3, scale 1, exp 1, opacity 1,
+    # clamp 2, exp of the running log 1, weight 1, 8 channel multiply-adds
+    # 16, log1p 1, running sum 1 - the clamp counted once); backward 60 (the
     # forward's 12 before the channels, g.c 16, contribution and prefix 3,
     # dalpha 4, the common term 2, 4 + 8 products, and 12 sums over pixels).
-    # K4: one add per nonzero entry; bytes of every input and output.
+    # Special-function operations per pair: two exp and a log1p, and in the
+    # backward a division. K4: one add per nonzero entry. Bytes: every input
+    # read once and every output written once.
     pairs = 256 * int(mask.sum())
-    nonzero = int((g_rows != 0).sum())
     bounds = {
-        "raster_fwd": bound(nbytes(tiled, out_k), 28 * pairs),
-        "raster_bwd": bound(nbytes(tiled, gout, dg_k), 60 * pairs),
-        "scatter_add": bound(nbytes(idx, g_rows, acc_k), nonzero),
+        "raster_fwd": bound(nbytes(tiled, out_k), 28 * pairs, 3 * pairs),
+        "raster_bwd": bound(nbytes(tiled, gout, out_k, dg_k), 60 * pairs, 4 * pairs),
     }
+    if with_scatter:
+        bounds["scatter_add"] = bound(nbytes(idx, g_rows, acc_k), int((g_rows != 0).sum()))
     for name, (b_ms, by) in bounds.items():
-        print(f"[bound] {name}: {b_ms:.4f} ms ({by})")
+        live = f"; {pairs} live (pixel, slot) pairs" if name != "scatter_add" else ""
+        print(f"[bound] {name + tag}: {b_ms:.4f} ms ({by}{live})")
     src = "xrdslam_tpu_torch/kernels/"
-    rows = (("raster_fwd", "gaussian_raster.cu", "xrdslam_tpu/ops/gaussian_raster.py:239", None),
-            ("raster_bwd", "gaussian_raster.cu", "xrdslam_tpu/ops/gaussian_raster.py:265", None),
-            ("scatter_add", "scatter.cu", "xrdslam_tpu/ops/pallas_scatter.py:38", lib_ms))
-    return [{"name": name, "route": "cuda", "source": src + f, "replaces": rep, "counter": name,
+    rows = (("raster_fwd", "gaussian_raster.cu", "xrdslam_tpu/ops/gaussian_raster.py:239"),
+            ("raster_bwd", "gaussian_raster.cu", "xrdslam_tpu/ops/gaussian_raster.py:265"),
+            ("scatter_add", "scatter.cu", "xrdslam_tpu/ops/pallas_scatter.py:38"))
+    return [{"name": name + tag, "route": "cuda", "source": src + f, "replaces": rep, "counter": name + tag,
              "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
-             "bound_by": bounds[name][1], "library_ms": lib}
-            for name, f, rep, lib in rows]
+             "bound_by": bounds[name][1], "library_ms": lib_ms[name]}
+            for name, f, rep in rows if name in ms]
 
 
 def check_point_table(device):
@@ -871,14 +928,14 @@ def profile_coslam(pipeline, name: str = "co-slam") -> None:
                         "map": lambda: algo.map_step(*args, algo.config.mapping_n_iters, False, algo._cur_cap())})
 
 
-def profile_splatam(pipeline) -> None:
+def profile_splatam(pipeline, name: str = "splaTAM") -> None:
     """One tracking call (binning + 40 iterations) and one mapping call
     (growth, window binning, 60 iterations) on the last frame, as the
     pipeline makes them; the mapping calls update the finished run's map."""
     algo = pipeline.algorithm
     fr = last_frame(pipeline)
-    profile("splaTAM", {"track": lambda: algo.finish_tracking(algo.dispatch_tracking(fr)),
-                        "map": lambda: algo.do_mapping(fr)})
+    profile(name, {"track": lambda: algo.finish_tracking(algo.dispatch_tracking(fr)),
+                   "map": lambda: algo.do_mapping(fr)})
 
 
 def profile_pointslam(pipeline) -> None:
@@ -916,6 +973,108 @@ def slots_probe(device) -> None:
                           "gaussians": res["gaussians"], "steady_s_per_frame": res["steady_s_per_frame"]}))
 
 
+# ``--raster-variants``: kernels/gaussian_raster.cu rebuilt with one change
+# each, (text, replacement) pairs, to time what each part of the design
+# costs or saves. The first three change the function (the "[variant]"
+# line prints their error against the twin) and measure a cost only.
+RASTER_VARIANTS = {
+    "no_row_sums": [("const float s = warp_reduce_scatter(v, lane);", "const float s = v[lane >> 1];")],
+    "fast_log1p": [("log1pf(-alpha)", "__logf(1.0f - alpha)")],
+    "fast_exp": [("expf(", "__expf(")],
+    "ieee_division": [("__fdividef(suffix, fmaxf(1.0f - alpha, 1e-6f))", "suffix / fmaxf(1.0f - alpha, 1e-6f)")],
+    "whole_tile_forward": [
+        ("constexpr int kFwdPix = kTile * kTile / 2;", "constexpr int kFwdPix = kTile * kTile;"),
+        ("const int tile = blockIdx.x / 2, row0 = (blockIdx.x % 2) * (kTile / 2), t = threadIdx.x;",
+         "const int tile = blockIdx.x, row0 = 0, t = threadIdx.x;"),
+        ("raster_fwd_kernel<kFwdPixPerThread><<<2 * n_tiles,", "raster_fwd_kernel<kFwdPixPerThread><<<n_tiles,")],
+    "fwd_2_px_per_thread": [("constexpr int kFwdPixPerThread = 1;", "constexpr int kFwdPixPerThread = 2;")],
+    "fwd_4_px_per_thread": [("constexpr int kFwdPixPerThread = 1;", "constexpr int kFwdPixPerThread = 4;")],
+    "bwd_1_px_per_thread": [("constexpr int kBwdPixPerThread = 4;", "constexpr int kBwdPixPerThread = 1;")],
+    "bwd_2_px_per_thread": [("constexpr int kBwdPixPerThread = 4;", "constexpr int kBwdPixPerThread = 2;")],
+}
+
+
+def raster_variants(device) -> None:
+    """K5 and K6 as shipped and as each of ``RASTER_VARIANTS`` on the
+    gaussians grown from office frame 0 (K = 256 and 512): milliseconds by
+    CUDA events and by device time, and the largest error against the twin
+    (K6's relative to its largest entry). Nothing is gated."""
+    import ctypes
+
+    import torch
+
+    from xrdslam_tpu_torch import kernels
+    from xrdslam_tpu_torch.ops import gaussian_raster as gr
+
+    src = (kernels.SOURCE_DIR / "gaussian_raster.cu").read_text()
+    out_dir = kernels.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in RASTER_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"raster variant {name}: {old!r} is not in gaussian_raster.cu")
+            text = text.replace(old, new)
+        (out_dir / f"{name}.cu").write_text(text)
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on raster variant {name}:\n{err}")
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.xr_raster_fwd.argtypes = [p, p, i, i, i, p]
+        lib.xr_raster_bwd.argtypes = [p, p, p, p, i, i, i, p]
+        lib.xr_cuda_error_string.argtypes, lib.xr_cuda_error_string.restype = [i], ctypes.c_char_p
+        libs[name] = lib
+    for k_per_tile in (256, SPLATAM_GATE["algorithm.model.k_per_tile"]):
+        tiled, gout, tiles, _, _, _ = raster_inputs(device, k_per_tile)
+        ntx, nty = gout.shape[1] // 16, gout.shape[0] // 16
+        n_tiles, k = tiles.shape
+        img_t = gr.raster_fwd_torch(tiled, ntx, nty)
+        dg_t = gr.raster_bwd_torch(tiled, gout, img_t, ntx, nty)
+        img, dg = torch.empty_like(img_t), torch.empty_like(tiled)
+        stream = torch.cuda.current_stream().cuda_stream
+        for name, lib in {"shipped": gr._lib(), **libs}.items():
+            def fwd():
+                kernels.check(lib, lib.xr_raster_fwd(tiled.data_ptr(), img.data_ptr(), n_tiles, k, ntx, stream), name)
+
+            def bwd():
+                kernels.check(lib, lib.xr_raster_bwd(tiled.data_ptr(), gout.data_ptr(), img_t.data_ptr(),
+                                                     dg.data_ptr(), n_tiles, k, ntx, stream), name)
+
+            fwd()
+            bwd()
+            torch.cuda.synchronize()
+            err_f = float((img - img_t).abs().max())
+            err_b = float((dg - dg_t).abs().max() / dg_t.abs().max())
+            ms_f, ms_b = min(cuda_ms(fwd), cuda_ms(fwd)), min(cuda_ms(bwd), cuda_ms(bwd))
+            print(f"[variant] K = {k} {name}: raster_fwd {ms_f:.4f} ms, device {device_ms(fwd):.4f} ms, "
+                  f"max abs err {err_f:.1e}; raster_bwd {ms_b:.4f} ms, device {device_ms(bwd):.4f} ms, "
+                  f"max err / max |twin| {err_b:.1e}", flush=True)
+        del tiled, gout, img_t, dg_t, img, dg
+        torch.cuda.empty_cache()
+
+
+def pointslam_repeat(n_runs: int) -> None:
+    """Point-SLAM's gated main path (registry settings, 12 office frames)
+    ``n_runs`` times in one process, each run's ATE beside its gate and
+    nothing gated: the spread that fp32 atomics leave between runs of the
+    same code and seed."""
+    import torch
+
+    data = f"n_frames={POINTSLAM_FRAMES},height={HEIGHT},width={WIDTH},scene=office"
+    for i in range(n_runs):
+        pipeline, res = run_slam("point-slam", data, ("row_gather", "scatter_add"), tag=f"#{i}")
+        print(f"[repeat] point-slam run {i}: ATE {res['ate_rmse_cm']:.4f} cm, gate "
+              f"{min(ATE_LIMIT_CM, FROZEN_ATE_SHARE * res['frozen_ate_cm']):.4f} cm", flush=True)
+        del pipeline
+        torch.cuda.empty_cache()
+
+
 T0 = time.perf_counter()
 
 
@@ -951,6 +1110,12 @@ def main(argv) -> None:
         print("\n".join("[ptxas] " + ln for ln in str(info["ptxas"]).splitlines() if ln.strip()))
     if argv == ["--slots-probe"]:
         slots_probe(device)
+        return
+    if argv == ["--raster-variants"]:
+        raster_variants(device)
+        return
+    if len(argv) == 2 and argv[0] == "--pointslam-repeat":
+        pointslam_repeat(int(argv[1]))
         return
     if argv:
         raise SystemExit(f"chip_smoke.py: unknown arguments {argv}")
@@ -1009,11 +1174,16 @@ def main(argv) -> None:
         torch.cuda.empty_cache()
     splatam_data = f"n_frames={SPLATAM_FRAMES},{office}"
     # SplaTAM's accuracy at full width (see SPLATAM_GATE)
-    run_slam("splaTAM", splatam_data, overrides=SPLATAM_GATE, ate_limit_cm=ATE_LIMIT_CM, tag="@k512")
-    stamp("splaTAM@k512 run")
+    raster = ("raster_fwd", "raster_bwd", "scatter_add")
+    pipeline, res = run_slam("splaTAM", splatam_data, raster, overrides=SPLATAM_GATE, ate_limit_cm=ATE_LIMIT_CM,
+                             tag="@k512")
+    launches.update({f"{name}[k512]": n for name, n in res["launches"].items()})
+    profile_splatam(pipeline, "splaTAM@k512")
+    stamp("splaTAM@k512 run and profile")
+    del pipeline
     torch.cuda.empty_cache()
     # the main path: full width, registry settings (ATE reported, not gated)
-    pipeline, res = run_slam("splaTAM", splatam_data, ("raster_fwd", "raster_bwd", "scatter_add"))
+    pipeline, res = run_slam("splaTAM", splatam_data, raster)
     launches.update(res["launches"])
     profile_splatam(pipeline)
     stamp("splaTAM run and profile")

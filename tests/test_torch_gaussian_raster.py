@@ -49,7 +49,10 @@ def jx():
     import jax.numpy as jnp
     from xrdslam_tpu.ops import gaussian_raster, pallas_scatter
 
-    return SimpleNamespace(jax=jax, jnp=jnp, gr=gaussian_raster, ps=pallas_scatter)
+    # the kernels alone, jitted so that cases of one shape trace them once
+    return SimpleNamespace(jax=jax, jnp=jnp, gr=gaussian_raster, ps=pallas_scatter,
+                           fwd=jax.jit(gaussian_raster._fwd_pallas, static_argnums=1),
+                           bwd=jax.jit(gaussian_raster._bwd_pallas, static_argnums=2))
 
 
 def _scene(seed=0):
@@ -160,11 +163,101 @@ def test_raster_bwd_zeroes_masked_slots(scene, binned):
     ta, tb = _torch_args(scene, binned)
     tiled = tgr._pack_tile_data(*ta, *tb)
     gout = torch.from_numpy(np.random.default_rng(2).standard_normal((H, W, 8)).astype(np.float32))
-    dg = tgr.raster_bwd_torch(tiled, gout, NTX, NTY)
+    dg = tgr.raster_bwd_torch(tiled, gout, tgr.raster_fwd_torch(tiled, NTX, NTY), NTX, NTY)
     assert dg.shape == tiled.shape
     assert float(dg[~tb[1]].abs().max()) == 0.0
     assert float(dg[..., [4, 13, 14, 15]].abs().max()) == 0.0
     assert float(dg[tb[1]].abs().max()) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# the cases the kernels' design branches on
+# ---------------------------------------------------------------------------
+
+CASE_GRID = (2, 2)  # tiles across, down
+# name -> (slots per tile K, live slots of each tile)
+CASES = {
+    "masked_tail": (64, (64, 40, 17, 1)),
+    "empty_tile": (64, (64, 0, 30, 64)),
+    "saturated": (64, (64, 64, 50, 64)),
+    "clamped": (64, (64, 64, 64, 64)),
+    "k300": (300, (300, 257, 256, 100)),  # K not a multiple of the kernels' 256-slot stage
+    "k512": (512, (512, 300, 0, 256)),  # two stages, as SplaTAM's K = 512 runs
+}
+
+
+def _case(name):
+    """One gaussian per slot of a 2 x 2 tile grid, random around its tile;
+    ids [4, K] name them in order and each tile's live slots are a prefix,
+    as binning fills them (the masked slots carry data too). "saturated":
+    tile 0 starts with 40 wide opaque gaussians, alpha 0.99 at every pixel,
+    so exp(log T) is exactly 0 there after 23 of them; "clamped": every 6th
+    slot is an opaque gaussian centred on a pixel, its alpha clamped at
+    0.99 there only."""
+    k, live = CASES[name]
+    ntx, nty = CASE_GRID
+    rng = np.random.default_rng(list(CASES).index(name))
+    n_tiles = ntx * nty
+    t = np.arange(n_tiles)[:, None]
+    u = (t % ntx) * 16 + rng.uniform(-8, 24, (n_tiles, k))
+    v = (t // ntx) * 16 + rng.uniform(-8, 24, (n_tiles, k))
+    sigma = rng.uniform(0.6, 4.0, (n_tiles, k))
+    op = rng.uniform(0.05, 0.95, (n_tiles, k))
+    if name == "saturated":
+        u[0, :40], v[0, :40], sigma[0, :40], op[0, :40] = 7.5, 7.5, 200.0, 0.999
+    if name == "clamped":
+        every = slice(0, k, 6)
+        u[:, every] = (t % ntx) * 16 + rng.integers(0, 16, u[:, every].shape)
+        v[:, every] = (t // ntx) * 16 + rng.integers(0, 16, v[:, every].shape)
+        op[:, every] = 0.999
+    f32 = lambda a: a.reshape(-1).astype(np.float32)  # noqa: E731
+    return SimpleNamespace(u=f32(u), v=f32(v), sigma=f32(sigma), op=f32(op),
+                           ch=rng.uniform(0, 1, (n_tiles * k, 8)).astype(np.float32),
+                           ids=np.arange(n_tiles * k, dtype=np.int32).reshape(n_tiles, k),
+                           mask=np.arange(k)[None, :] < np.asarray(live)[:, None],
+                           gout=rng.standard_normal((nty * 16, ntx * 16, 8)).astype(np.float32))
+
+
+def _case_tiled(c):
+    ta = [torch.from_numpy(a) for a in (c.u, c.v, c.sigma, c.op, c.ch)]
+    return tgr._pack_tile_data(*ta, torch.from_numpy(c.ids), torch.from_numpy(c.mask))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_raster_cases_match_jax(jx, case):
+    """The twins against the JAX kernels (interpret mode) in each case the
+    CUDA kernels branch on: masked tails, an empty tile, a tile whose
+    transmittance reaches exactly 0, clamped alphas, K across stages.
+    ``raster_bwd`` gets the forward's image, as the autograd function
+    passes it."""
+    c = _case(case)
+    ntx, nty = CASE_GRID
+    tiled = _case_tiled(c)
+    tiled_j = jx.jnp.asarray(tiled.numpy().transpose(0, 2, 1))  # the JAX kernels take [T, 16, K]
+    image = tgr.raster_fwd(tiled, ntx, nty)
+    want = np.asarray(jx.fwd(tiled_j, ntx))  # [T, 8, 256]
+    np.testing.assert_allclose(tgr._image_to_tiles(image, ntx, nty).numpy().transpose(0, 2, 1), want, atol=1e-5,
+                               rtol=0)
+    gout = torch.from_numpy(c.gout)
+    gt = jx.jnp.asarray(tgr._image_to_tiles(gout, ntx, nty).numpy().transpose(0, 2, 1))  # channel-major
+    # the reference multiplies by the mask after its kernel
+    want = np.asarray(jx.bwd(tiled_j, gt, ntx)).transpose(0, 2, 1) * c.mask[..., None]
+    got = tgr.raster_bwd(tiled, gout, image, ntx, nty).numpy()
+    assert not got[~c.mask].any()
+    for name, cols in (("u", 0), ("v", 1), ("sigma", 2), ("opacity", 3), ("channels", slice(5, 13))):
+        scale = np.abs(want[..., cols]).max()
+        assert scale > 0 and np.abs(got[..., cols] - want[..., cols]).max() <= REL * scale, name
+    # the case is what its name says
+    rows = [tiled.transpose(1, 2)[:, None, i, :] for i in range(4)]
+    alpha = tgr._alphas(*rows, torch.from_numpy(c.mask)[:, None, :], *tgr._pixel_grid(ntx * nty, ntx, "cpu"))
+    if case == "saturated":
+        log_t = torch.cumsum(torch.log1p(-alpha), dim=-1)
+        assert (torch.exp(log_t[0, :, 30]) == 0).all() and (torch.exp(log_t[1:, :, -1]) > 0).any()
+    if case == "clamped":
+        raw = rows[3] * torch.exp(-((tgr._pixel_grid(ntx * nty, ntx, "cpu")[0] - rows[0]) ** 2
+                                    + (tgr._pixel_grid(ntx * nty, ntx, "cpu")[1] - rows[1]) ** 2)
+                                  * (0.5 / rows[2] ** 2))
+        assert (raw > tgr.ALPHA_MAX).sum() >= 4 * 10 and (alpha == tgr.ALPHA_MAX).sum() < alpha.numel() / 100
 
 
 @pytest.mark.parametrize("rows", [300, 40_000])  # the Pallas branch and the XLA branch of the reference
@@ -195,7 +288,7 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         tgr.raster_fwd(meta, NTX, NTY)
     with pytest.raises(ValueError):
-        tgr.raster_bwd(meta, torch.empty((H, W, 8), device="meta"), NTX, NTY)
+        tgr.raster_bwd(meta, torch.empty((H, W, 8), device="meta"), torch.empty((H, W, 8), device="meta"), NTX, NTY)
     with pytest.raises(ValueError):
         tsc.scatter_add(torch.empty(4, dtype=torch.int32, device="meta"), torch.empty((4, 16), device="meta"), 9)
 
@@ -205,29 +298,43 @@ def test_wrappers_reject_other_devices():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 48, 300])
-def test_cuda_raster_kernels_match_twins(k):
+@pytest.mark.parametrize("case", [1, 48, 300, *CASES])
+def test_cuda_raster_kernels_match_twins(case):
+    """K5, K6 (through ``rasterize`` and alone, with the forward's image)
+    and K4 against the twins: on a random scene binned on the card at K =
+    ``case``, or on one of ``CASES``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
     dev = torch.device("cuda")
-    s = _scene(k)
-    args = [torch.as_tensor(a, device=dev) for a in (s.u, s.v, s.depth, 3 * s.sigma, s.alive)]
-    ids, mask = tgr.bin_gaussians_device(*args, H, W, k_per_tile=k, max_span=4)
-    ta = [torch.as_tensor(a, device=dev).requires_grad_(True) for a in (s.u, s.v, s.sigma, s.op * s.alive, s.ch)]
-    tiled = tgr._pack_tile_data(*[t.detach() for t in ta], ids, mask)
-    gout = torch.randn((H, W, 8), generator=torch.Generator(device=dev).manual_seed(k), device=dev)
+    if isinstance(case, int):
+        s = _scene(case)
+        args = [torch.as_tensor(a, device=dev) for a in (s.u, s.v, s.depth, 3 * s.sigma, s.alive)]
+        ids, mask = tgr.bin_gaussians_device(*args, H, W, k_per_tile=case, max_span=4)
+        ntx, nty, seed = NTX, NTY, case
+        ta = [torch.as_tensor(a, device=dev) for a in (s.u, s.v, s.sigma, s.op * s.alive, s.ch)]
+    else:
+        c = _case(case)
+        ids, mask = torch.as_tensor(c.ids, device=dev), torch.as_tensor(c.mask, device=dev)
+        (ntx, nty), seed = CASE_GRID, list(CASES).index(case)
+        ta = [torch.as_tensor(a, device=dev) for a in (c.u, c.v, c.sigma, c.op, c.ch)]
+    tiled = tgr._pack_tile_data(*ta, ids, mask)
+    ta = [t.requires_grad_(True) for t in ta]
+    gout = torch.randn((16 * nty, 16 * ntx, 8), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
     before = dict(tgr.LAUNCHES), dict(tsc.LAUNCHES)
-    out = tgr.rasterize(*ta, ids, mask, NTX, NTY)
+    out = tgr.rasterize(*ta, ids, mask, ntx, nty)
     grads = torch.autograd.grad(out, ta, gout)
-    dg = tgr.raster_bwd(tiled, gout, NTX, NTY)
     torch.cuda.synchronize()
     assert tgr.LAUNCHES["raster_fwd"] == before[0]["raster_fwd"] + 1
-    assert tgr.LAUNCHES["raster_bwd"] == before[0]["raster_bwd"] + 2
+    assert tgr.LAUNCHES["raster_bwd"] == before[0]["raster_bwd"] + 1
     assert tsc.LAUNCHES["scatter_add"] == before[1]["scatter_add"] + 1
-    assert (out - tgr.raster_fwd_torch(tiled, NTX, NTY)).abs().max().item() <= 1e-5
-    dg_w = tgr.raster_bwd_torch(tiled, gout, NTX, NTY)
+    img_w = tgr.raster_fwd_torch(tiled, ntx, nty)
+    dg_w = tgr.raster_bwd_torch(tiled, gout, img_w, ntx, nty)
+    dg = tgr.raster_bwd(tiled, gout, out.detach(), ntx, nty)
+    torch.cuda.synchronize()
+    assert (out - img_w).abs().max().item() <= 1e-5
     assert (dg - dg_w).abs().max().item() <= REL * dg_w.abs().max().item()
-    acc = tsc.scatter_add_torch(ids.reshape(-1), dg_w.reshape(-1, 16), G_ROWS)
+    assert not dg[~mask].any()
+    acc = tsc.scatter_add_torch(ids.reshape(-1), dg_w.reshape(-1, 16), ta[0].shape[0])
     for g, w in zip(grads, (acc[:, 0], acc[:, 1], acc[:, 2], acc[:, 3], acc[:, 5:13])):
         assert (g - w).abs().max().item() <= REL * w.abs().max().item()
 

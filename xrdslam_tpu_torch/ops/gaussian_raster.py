@@ -9,8 +9,9 @@ so a gaussian's footprint on screen is a circle, and one pass renders all
   tiles they overlap, K per tile, nearest first (``bin_gaussians`` is the
   reference package's NumPy binner, copied for the tests).
 * ``rasterize`` is a ``torch.autograd.Function``: its forward is K5
-  (``raster_fwd``), its backward K6 (``raster_bwd``) and then K4
-  (``ops.scatter.scatter_add``) to sum each gaussian's per-tile gradients.
+  (``raster_fwd``), its backward K6 (``raster_bwd``, which also reads the
+  forward's image) and then K4 (``ops.scatter.scatter_add``) to sum each
+  gaussian's per-tile gradients.
 
 The kernels are in ``kernels/gaussian_raster.cu``, whose header gives the
 layouts, what bounds them on the card and what the design does about it.
@@ -223,10 +224,14 @@ def raster_fwd_torch(tiled: torch.Tensor, ntx: int, nty: int) -> torch.Tensor:
     return _tiles_to_image(torch.einsum("tpk,tkc->tpc", w, ch), ntx, nty)
 
 
-def raster_bwd_torch(tiled: torch.Tensor, gout: torch.Tensor, ntx: int, nty: int) -> torch.Tensor:
-    """(tiled [T, K, 16], gout [16 nty, 16 ntx, N_CH]) -> per-slot gradients
-    [T, K, 16] (d u, d v, d sigma, d opacity, 0, d ch0..7, 0, 0, 0), zero
-    for slots whose mask is off."""
+def raster_bwd_torch(tiled: torch.Tensor, gout: torch.Tensor, image: torch.Tensor, ntx: int,
+                     nty: int) -> torch.Tensor:
+    """(tiled [T, K, 16], gout [16 nty, 16 ntx, N_CH], image: the forward's
+    output) -> per-slot gradients [T, K, 16] (d u, d v, d sigma, d opacity,
+    0, d ch0..7, 0, 0, 0), zero for slots whose mask is off. The kernel
+    forms each pixel's total contribution as gout . image; this twin forms
+    it the reference's way, as the sum of the contributions, and does not
+    read ``image``."""
     gu, gv, gsig, gop, gmask, ch = _slots(tiled)
     px, py = _pixel_grid(tiled.shape[0], ntx, tiled.device)
     gpx = _image_to_tiles(gout, ntx, nty)  # [T, P, C]
@@ -268,7 +273,7 @@ def raster_bwd_torch(tiled: torch.Tensor, gout: torch.Tensor, ntx: int, nty: int
 def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     return kernels.bind("gaussian_raster", {"xr_raster_fwd": [p, p, i, i, i, p],
-                                            "xr_raster_bwd": [p, p, p, i, i, i, p]})
+                                            "xr_raster_bwd": [p, p, p, p, i, i, i, p]})
 
 
 def _check_cuda(t: torch.Tensor, shape, what: str) -> None:
@@ -295,20 +300,21 @@ def raster_fwd(tiled: torch.Tensor, ntx: int, nty: int) -> torch.Tensor:
     return out
 
 
-def raster_bwd(tiled: torch.Tensor, gout: torch.Tensor, ntx: int, nty: int) -> torch.Tensor:
-    """(tiled [T, K, 16], gout [16 nty, 16 ntx, N_CH]) -> [T, K, 16]: K6 on
-    CUDA, twin on CPU."""
+def raster_bwd(tiled: torch.Tensor, gout: torch.Tensor, image: torch.Tensor, ntx: int, nty: int) -> torch.Tensor:
+    """(tiled [T, K, 16], gout [16 nty, 16 ntx, N_CH], image: ``raster_fwd``
+    of ``tiled``) -> [T, K, 16]: K6 on CUDA, twin on CPU."""
     if kernels.on_cpu(tiled, "raster_bwd"):
-        return raster_bwd_torch(tiled, gout, ntx, nty)
+        return raster_bwd_torch(tiled, gout, image, ntx, nty)
     n_tiles, k = tiled.shape[0], tiled.shape[1]
     if n_tiles != ntx * nty:
         raise ValueError(f"{n_tiles} tiles do not make a {nty} x {ntx} grid")
     gout = gout.contiguous()  # autograd hands on the slice img[:H, :W]'s padded cotangent
     _check_cuda(tiled, (n_tiles, k, ROW), "tiled")
     _check_cuda(gout, (nty * TILE, ntx * TILE, N_CH), "gout")
+    _check_cuda(image, (nty * TILE, ntx * TILE, N_CH), "image")
     lib = _lib()
     dg = torch.empty_like(tiled)
-    code = lib.xr_raster_bwd(tiled.data_ptr(), gout.data_ptr(), dg.data_ptr(), n_tiles, k, ntx,
+    code = lib.xr_raster_bwd(tiled.data_ptr(), gout.data_ptr(), image.data_ptr(), dg.data_ptr(), n_tiles, k, ntx,
                              torch.cuda.current_stream(tiled.device).cuda_stream)
     kernels.check(lib, code, "raster_bwd")
     LAUNCHES["raster_bwd"] += 1
@@ -333,15 +339,16 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, v, sigma, opacity, channels, tile_ids, tile_mask, ntx: int, nty: int):
         tiled = _pack_tile_data(u, v, sigma, opacity, channels, tile_ids, tile_mask)
-        ctx.save_for_backward(tiled, tile_ids)
+        image = raster_fwd(tiled, ntx, nty)
+        ctx.save_for_backward(tiled, tile_ids, image)
         ctx.grid = (ntx, nty)
         ctx.n_gauss = u.shape[0]
-        return raster_fwd(tiled, ntx, nty)
+        return image
 
     @staticmethod
     def backward(ctx, gout):
-        tiled, tile_ids = ctx.saved_tensors
-        dg = raster_bwd(tiled, gout, *ctx.grid)  # masked slots are zero
+        tiled, tile_ids, image = ctx.saved_tensors
+        dg = raster_bwd(tiled, gout, image, *ctx.grid)  # masked slots are zero
         acc = scatter_add(tile_ids.reshape(-1), dg.reshape(-1, ROW), ctx.n_gauss)  # [G, 16]
         return acc[:, 0], acc[:, 1], acc[:, 2], acc[:, 3], acc[:, 5:5 + N_CH], None, None, None, None
 
