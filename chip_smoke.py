@@ -17,14 +17,23 @@
    K4 on gaussians grown from an office frame at 600x340 and binned at its
    pose (836 tiles, K = 256, 131,072 rows), with a seeded random upstream
    gradient, and K5/K6 again binned with K = 512 (the SplaTAM gate's);
-   K5/K6 also by device time. K4 is also timed against
-   ``Tensor.index_add_``. The row
+   K5/K6 also by device time. The row
    gather K7 at Point-SLAM's mapping shape: the union rows of the point map
    grown from office frame 0 at 600x340 (registry settings), gathered for
    the 24,960 surface samples of 4,992 rays (bit for bit against the twin,
    at width 1024 for K7a and 128 for K7b, timed against
    ``torch.index_select``); and K4 at ``table_lookup``'s shape, the
    199,680 neighbour rows of those samples into the 262,144 x 32 table.
+   K4 at each of its six shapes (SplaTAM's, ``table_lookup``'s, the
+   packed hash's and the tri-plane's on uniform random points, and the
+   main-path launches of the packed hash over its 16 levels and of the
+   tri-plane over its 6 planes on office surface samples) must give the
+   same bits in two launches, and is timed with and
+   without its ordering beside ``Tensor.index_add_`` and torch's
+   deterministic ``index_put_(accumulate=True)``; the hash-grid dx must
+   give the same bits in every launch. Every kernel is also timed by
+   device time, and a ``[launch]`` line gives what a launch costs the host
+   beyond it (CUDA events minus device time).
 4. Runs, through the port's runner: Co-SLAM on the synthetic office at
    600x340 with the benchmark settings, twice (gated): with the exact hash
    grid (K1-K3) and at the registry's default, the packed hash (K4 as its
@@ -72,10 +81,29 @@ times each beside the shipped K5/K6 on the grown office frame at K = 256
 and 512 (``[variant]`` lines, no result line): what each part of the
 kernels' design costs or saves.
 
-    python3 chip_smoke.py --pointslam-repeat N
+    python3 chip_smoke.py --scatter-variants
 
-runs Point-SLAM's gated main path N times and prints each run's ATE beside
-its gate (nothing gated, no result line): the spread between runs.
+checks and times K4 at its six shapes (as the default run does) beside
+K4's former atomic design, rebuilt from ``ATOMIC_SCATTER_CU`` with scalar and
+with float4 atomics, and the main paths' single K4 launch against one per
+level or plane (``[lever]`` lines); then rebuilds the hash-grid backward
+with one change at a time (``HASHGRID_VARIANTS``) and times dx, dtable and
+both (``[variant]`` lines, no result line).
+
+    python3 chip_smoke.py --determinism-probe
+
+runs each main path for a few frames under
+``torch.use_deterministic_algorithms(True, warn_only=True)`` and prints
+every operation torch names as non-deterministic (``[determinism]`` lines,
+no result line).
+
+    python3 chip_smoke.py --pointslam-repeat N --protocol-repeat M
+
+runs Point-SLAM's gated main path N times, then Co-SLAM at the accuracy
+protocol (tri-plane, 200 frames, seed 0) and its row M times (either flag
+alone also works), and prints each run's ATE beside its gate, a digest of
+its poses' bits and the rows (nothing gated, no result line), and whether
+the runs of each kind were identical.
 """
 from __future__ import annotations
 
@@ -205,6 +233,276 @@ def check(name: str, err: float, limit: float, scale: float) -> None:
     print(f"[check] {name}: max abs err {err:.3e} (limit {limit:.3e}, max |twin| {scale:.3e})")
 
 
+def same_bits(name: str, outs) -> None:
+    """Raise unless every tensor of ``outs`` (launches on the same inputs)
+    has the same bits as the first."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise RuntimeError(f"kernel {name} gave different bits on the same inputs")
+    print(f"[check] {name}: the same bits in {len(outs)} launches")
+
+
+def scatter_case(name: str, idx, g, rows: int, device, order=None):
+    """K4 at one shape (ids ``idx`` [N], g [N, C] into ``rows``): checked
+    against its twin and for the same bits in two launches, from the ids and
+    on ``order`` (a caller's ordering built once, which may leave out zero
+    entries: where a row is longer than a piece that regroups its sum, so
+    each is held to the twin on its own); then timed from the ids (its
+    ordering included) and on ``order``, the sums alone; beside
+    ``index_add_`` and torch's deterministic ``index_put_(accumulate=True)``,
+    by CUDA events and by device time. Returns the record's numbers."""
+    import torch
+
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    order = order or sc.scatter_order(idx, rows)
+    outs = [sc.scatter_add(idx, g, rows) for _ in range(2)]
+    same_bits(name, outs)
+    on_order = [sc.scatter_add_ordered(order, g) for _ in range(2)]
+    same_bits(f"{name} on a built ordering", on_order)
+    acc_t = sc.scatter_add_torch(idx, g, rows)
+    scale = float(acc_t.abs().max())
+    err = float((outs[0] - acc_t).abs().max())
+    check(name, err, BWD_RTOL * scale, scale)
+    check(f"{name} on a built ordering", float((on_order[0] - acc_t).abs().max()), BWD_RTOL * scale, scale)
+    del outs, on_order, acc_t
+    ok = (idx >= 0) & (idx < rows)
+    idx_long, g_ok = idx[ok].long(), g[ok].contiguous()
+    lib_out = torch.empty((rows, g.shape[1]), device=device)
+
+    def index_add():
+        lib_out.zero_()
+        lib_out.index_add_(0, idx_long, g_ok)
+
+    def index_put():
+        torch.use_deterministic_algorithms(True)
+        try:
+            lib_out.zero_()
+            lib_out.index_put_((idx_long,), g_ok, accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    kern = lambda: sc.scatter_add(idx, g, rows)  # noqa: E731
+    sums = lambda: sc.scatter_add_ordered(order, g)  # noqa: E731
+    k_ms, t_ms = interleaved(kern, lambda: sc.scatter_add_torch(idx, g, rows))
+    sort = lambda: torch.sort(idx, stable=True)  # noqa: E731
+    ev = {"sums": min(cuda_ms(sums), cuda_ms(sums)), "order": min(cuda_ms(lambda: sc.scatter_order(idx, rows))
+                                                                  for _ in range(2)),
+          "sort": min(cuda_ms(sort), cuda_ms(sort)),
+          "index_add_": min(cuda_ms(index_add), cuda_ms(index_add)),
+          "index_put_": min(cuda_ms(index_put), cuda_ms(index_put))}
+    dev = {"kernel": device_ms(kern), "sums": device_ms(sums), "sort": device_ms(sort),
+           "index_add_": device_ms(index_add), "index_put_": device_ms(index_put)}
+    for vname, lib in SCATTER_VARIANTS.items():
+        atomic_variant(vname, lib, idx, g, rows, device)
+    b_ms, by = bound(nbytes(idx, g) + rows * g.shape[1] * 4, int((g_ok != 0).sum()))
+    print(f"[time] {name}: N={idx.shape[0]} x {g.shape[1]} into {rows} rows; kernel {k_ms:.4f} ms "
+          f"(device {dev['kernel']:.4f}), the sums alone on a built ordering {ev['sums']:.4f} (device "
+          f"{dev['sums']:.4f}), the ordering {ev['order']:.4f} (its torch.sort {ev['sort']:.4f}, device "
+          f"{dev['sort']:.4f}); twin {t_ms:.4f}; index_add_ {ev['index_add_']:.4f} "
+          f"(device {dev['index_add_']:.4f}); deterministic index_put_ {ev['index_put_']:.4f} (device "
+          f"{dev['index_put_']:.4f}); bound {b_ms:.4f} ms ({by})", flush=True)
+    if dev["kernel"] > dev["index_put_"]:
+        print(f"[note] {name}: K4's device time {dev['kernel']:.4f} ms is above deterministic index_put_'s "
+              f"{dev['index_put_']:.4f}")
+    return {"max_abs_err": err, "ms": k_ms, "device_ms": dev["kernel"], "sums_ms": ev["sums"],
+            "sums_device_ms": dev["sums"], "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": ev["index_add_"], "index_put_det_ms": ev["index_put_"],
+            "index_put_det_device_ms": dev["index_put_"]}
+
+
+# ``--scatter-variants``: K4's former design, one fp32 atomicAdd per (entry, channel)
+# into a table the wrapper zeroes (zero entries skipped), and the same design
+# with one float4 atomicAdd per (entry, 4 channels) (sm_90, global memory).
+# Built from this source beside the shipped kernel and timed at K4's shapes
+# (the price of determinism); not part of the package.
+ATOMIC_SCATTER_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void __launch_bounds__(256)
+scatter_add_kernel(const int32_t* __restrict__ idx, const float* __restrict__ g, float* __restrict__ out, int64_t n,
+                   int c_dim, int64_t num_rows) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n * c_dim) return;
+  const int64_t e = t / c_dim;
+  const float val = __ldg(g + t);
+  if (val == 0.0f) return;
+  const int64_t row = (int64_t)__ldg(idx + e);
+  if (row < 0 || row >= num_rows) return;
+  atomicAdd(out + row * c_dim + (t - e * c_dim), val);
+}
+__global__ void __launch_bounds__(256)
+scatter_add4_kernel(const int32_t* __restrict__ idx, const float4* __restrict__ g, float4* __restrict__ out,
+                    int64_t n, int c4, int64_t num_rows) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n * c4) return;
+  const int64_t e = t / c4;
+  const float4 val = __ldg(g + t);
+  if (val.x == 0.0f && val.y == 0.0f && val.z == 0.0f && val.w == 0.0f) return;
+  const int64_t row = (int64_t)__ldg(idx + e);
+  if (row < 0 || row >= num_rows) return;
+  atomicAdd(out + row * c4 + (t - e * c4), val);
+}
+extern "C" int xr_scatter_add_atomic(const int32_t* idx, const float* g, float* out, long long n, int c_dim,
+                                     long long num_rows, int vec4, void* stream) {
+  const int64_t threads = (int64_t)n * (vec4 ? c_dim / 4 : c_dim);
+  if (threads == 0) return 0;
+  const unsigned int blocks = (unsigned int)((threads + 255) / 256);
+  if (vec4)
+    scatter_add4_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(idx, (const float4*)g, (float4*)out, n, c_dim / 4,
+                                                                  num_rows);
+  else
+    scatter_add_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(idx, g, out, n, c_dim, num_rows);
+  return (int)cudaGetLastError();
+}
+extern "C" const char* xr_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+"""
+SCATTER_VARIANTS = {}  # name -> the atomic library, set by --scatter-variants
+
+
+def atomic_variant(name: str, lib, idx, g, rows: int, device) -> None:
+    """K4's former atomic design (scalar, or ``float4`` atomics where ``name`` ends
+    in 4) at one shape, its zero fill included: error against the twin, ms
+    by CUDA events and device time, and whether two launches agree."""
+    import torch
+
+    from xrdslam_tpu_torch import kernels
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    vec4 = int(name.endswith("4"))
+
+    def run():
+        out = torch.zeros((rows, g.shape[1]), device=device)
+        kernels.check(lib, lib.xr_scatter_add_atomic(idx.data_ptr(), g.data_ptr(), out.data_ptr(), idx.shape[0],
+                                                     g.shape[1], rows, vec4, kernels.stream(g)), name)
+        return out
+
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    want = sc.scatter_add_torch(idx, g, rows)
+    err = float((a - want).abs().max() / want.abs().max())
+    print(f"[variant] K4 {name}: {min(cuda_ms(run), cuda_ms(run)):.4f} ms, device {device_ms(run):.4f} ms, "
+          f"max err / max |twin| {err:.1e}, two launches {'the same' if torch.equal(a, b) else 'differ'}", flush=True)
+
+
+def build_variants(source: str, variants, out_dir) -> dict:
+    """``kernels/<source>.cu`` with each variant's (text, replacement) edits,
+    or a variant's whole text where it is a string, compiled in parallel
+    (one nvcc each) into ``out_dir``; name -> the loaded library."""
+    import ctypes
+
+    from xrdslam_tpu_torch import kernels
+
+    src = (kernels.SOURCE_DIR / f"{source}.cu").read_text()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in variants.items():
+        text = src
+        if isinstance(edits, str):
+            text = edits
+        else:
+            for old, new in edits:
+                if old not in text:
+                    raise RuntimeError(f"variant {name}: {old!r} is not in {source}.cu")
+                text = text.replace(old, new)
+        (out_dir / f"{name}.cu").write_text(text)
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
+        lib = libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        lib.xr_cuda_error_string.argtypes, lib.xr_cuda_error_string.restype = [ctypes.c_int], ctypes.c_char_p
+    return libs
+
+
+# ``--scatter-variants`` also rebuilds kernels/hashgrid.cu with one change at
+# a time: float2 atomics only (no float4 for an aligned pair of entries),
+# scalar atomics (the former dtable: 16 per (point, level)), and dx summed with
+# three fp32 atomics per (point, level) into a zeroed dx (the former dx) in
+# place of the warp shuffles.
+HASHGRID_VARIANTS = {
+    "float2_only": [("if (!kPlanes && (e[0] ^ e[1]) == 1u) {", "if (false) {")],
+    "pr4_dtable": [("if (!kPlanes && (e[0] ^ e[1]) == 1u) {", "if (false) {"),
+                   ("if (!kPlanes) {\n    atomicAdd(reinterpret_cast<float2*>",
+                    "if (false) {\n    atomicAdd(reinterpret_cast<float2*>")],
+    "dx_atomics": [("for (int off = (1 << log2_lp) >> 1; off > 0; off >>= 1) {",
+                    "for (int off = 0; off > 0; off >>= 1) {"),
+                   ("  if (l == 0 && p < n) {\n    dx[3 * p + 0] = ddx;\n    dx[3 * p + 1] = ddy;\n"
+                    "    dx[3 * p + 2] = ddz;\n  }",
+                    "  if (p < n && l < lv.n_levels) {\n    atomicAdd(dx + 3 * p + 0, ddx);\n"
+                    "    atomicAdd(dx + 3 * p + 1, ddy);\n    atomicAdd(dx + 3 * p + 2, ddz);\n  }")],
+}
+
+
+def hashgrid_variants(spec, device) -> None:
+    """The hash-grid backward as shipped and as each of ``HASHGRID_VARIANTS``
+    at N = 176,128 (the mapping shape, random points as ``check_hashgrid``):
+    dx alone, dtable alone and both, by CUDA events and device time, with
+    the error against the twin. Nothing is gated."""
+    import ctypes
+
+    import torch
+
+    from xrdslam_tpu_torch import kernels
+    from xrdslam_tpu_torch.ops import hashgrid_fast as hf
+
+    libs = build_variants("hashgrid", HASHGRID_VARIANTS, kernels.BUILD_DIR / "variants")
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(-0.05, 1.05, (N_MAP, 3)).astype(np.float32), device=device)
+    g = torch.as_tensor(rng.standard_normal((N_MAP, spec.out_dim)).astype(np.float32), device=device)
+    table = torch.as_tensor(rng.standard_normal((spec.n_levels, spec.table_size, 2)).astype(np.float32), device=device)
+    dt_t, dx_t = hf.hashgrid_bwd_torch(table, x, g, spec)
+    res, dense = hf.level_args(spec)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, lib in {"shipped": kernels.load("hashgrid"), **libs}.items():
+        lib.xr_hashgrid_bwd.argtypes = [p, p, p, p, p, ll, i, i, p, p, p]
+        for case, (nd, nx) in {"dx": (False, True), "dtable": (True, False), "dx+dtable": (True, True)}.items():
+            def run():
+                dt = torch.zeros_like(table) if nd else None
+                dx = torch.zeros((N_MAP, 3), device=device) if nx else None  # zeroed for the atomic variant
+                kernels.check(lib, lib.xr_hashgrid_bwd(
+                    table.data_ptr(), x.data_ptr(), g.data_ptr(), dx.data_ptr() if nx else None,
+                    dt.data_ptr() if nd else None, N_MAP, spec.n_levels, spec.log2_table_size, res, dense,
+                    kernels.stream(x)), name)
+                return dt, dx
+
+            dt, dx = run()
+            torch.cuda.synchronize()
+            errs = []
+            if nd:
+                errs.append(f"dtable {float((dt - dt_t).abs().max() / dt_t.abs().max()):.1e}")
+            if nx:
+                errs.append(f"dx {float((dx - dx_t).abs().max() / dx_t.abs().max()):.1e}")
+            print(f"[variant] hashgrid_bwd {name} [{case}]: {min(cuda_ms(run), cuda_ms(run)):.4f} ms, device "
+                  f"{device_ms(run):.4f} ms (zero fills included); max err / max |twin|: {', '.join(errs)}",
+                  flush=True)
+
+
+def scatter_variants(spec, device) -> None:
+    """K4 at its six shapes beside its former atomic design (scalar and float4
+    atomics), ``index_add_`` and torch's deterministic ``index_put_``; then
+    the hash-grid backward's variants. Prints ``[time]``, ``[lever]`` and
+    ``[variant]`` lines; nothing but the kernels' checks is gated."""
+    import ctypes
+
+    from xrdslam_tpu_torch import kernels
+
+    lib = build_variants("scatter", {"atomic": ATOMIC_SCATTER_CU}, kernels.BUILD_DIR / "variants")["atomic"]
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.xr_scatter_add_atomic.argtypes = [p, p, p, ll, ctypes.c_int, ll, ctypes.c_int, p]
+    SCATTER_VARIANTS.update({"atomic": lib, "atomic_float4": lib})
+    check_scatter_coslam(spec, device)
+    check_raster_at(device, 256, with_scatter=True)
+    check_point_table(device)
+    SCATTER_VARIANTS.clear()
+    hashgrid_variants(spec, device)
+
+
 def steady_stats(frame_times):
     """Steady per-frame seconds as the reference benchmark computes them:
     drop the first 15 frames, then frames slower than 4x the median."""
@@ -255,6 +553,10 @@ def check_hashgrid(spec, device):
     limit = {"fwd": FWD_ATOL, "dx": BWD_RTOL * scale["dx"], "dtable": BWD_RTOL * scale["dtable"]}
     for k in err:
         check(k, err[k], limit[k], scale[k])
+    err["dx+dtable"] = max(err["dx"], err["dtable"])
+    # dx is summed without atomics: the same bits on every launch
+    same_bits("hashgrid_bwd[dx]", [dx_k, hf.hashgrid_bwd(table, x, g, spec, False, True)[1],
+                                   hf.hashgrid_bwd(table, x, g, spec, True, True)[1]])
 
     xt, gt = x[:N_TRACK].contiguous(), g[:N_TRACK].contiguous()
     times = {
@@ -269,11 +571,12 @@ def check_hashgrid(spec, device):
         "dx@track": (lambda: hf.hashgrid_bwd(table, xt, gt, spec, False, True),
                      lambda: hf.hashgrid_bwd_torch(table, xt, gt, spec, False, True)),
     }
-    ms = {}
+    ms, dev = {}, {}
     for k, (kern, twin) in times.items():
         ms[k] = interleaved(kern, twin)
+        dev[k] = device_ms(kern)
         n = N_TRACK if k.endswith("@track") else N_MAP
-        print(f"[time] {k:10s} N={n}: kernel {ms[k][0]:.4f} ms, twin {ms[k][1]:.4f} ms")
+        print(f"[time] {k:10s} N={n}: kernel {ms[k][0]:.4f} ms, device {dev[k]:.4f} ms, twin {ms[k][1]:.4f} ms")
     # Bounds at N points x L levels. Bytes: each input read once, each output
     # written once. Operations per (point, level), float only: 3 x 4 for the
     # cell position and fraction; per corner 2 products for its weight, and
@@ -285,6 +588,7 @@ def check_hashgrid(spec, device):
         "fwd": bound(nbytes(table, x, out_k), pl * (12 + 8 * 6)),
         "dx": bound(nbytes(table, x, g, dx_out), pl * (12 + 8 * 12)),
         "dtable": bound(nbytes(x, g, dt_k), pl * (12 + 8 * 6)),
+        "dx+dtable": bound(nbytes(table, x, g, dx_out, dt_k), pl * (12 + 8 * 16)),
     }
     for k, (b_ms, by) in bounds.items():
         print(f"[bound] {k}: {b_ms:.4f} ms ({by})")
@@ -292,11 +596,13 @@ def check_hashgrid(spec, device):
     ref = "xrdslam_tpu/ops/hashgrid_fast.py"
     rows = (("hashgrid_fwd", "fwd", f"{ref}:202", "hashgrid_fwd"),
             ("hashgrid_bwd[dx]", "dx", f"{ref}:216", "hashgrid_bwd_dx"),
-            ("hashgrid_bwd[dtable]", "dtable", f"{ref}:95", "hashgrid_bwd_dtable"))
+            ("hashgrid_bwd[dtable]", "dtable", f"{ref}:95", "hashgrid_bwd_dtable"),
+            # mapping's call: K2 and K3 in one backward
+            ("hashgrid_bwd[dx+dtable]", "dx+dtable", f"{ref}:216 and :95", "hashgrid_bwd_dx_dtable"))
     # no single PyTorch call computes a hash-grid encoding or its gradients
     return [{"name": name, "route": "cuda", "source": src, "replaces": rep, "counter": counter,
-             "max_abs_err": err[k], "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
-             "bound_by": bounds[k][1], "library_ms": None}
+             "max_abs_err": err[k], "ms": ms[k][0], "device_ms": dev[k], "plain_ms": ms[k][1],
+             "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
             for name, k, rep, counter in rows]
 
 
@@ -326,12 +632,12 @@ def check_hashgrid_planes(spec, device):
     for k in err:
         check(f"planes {k}", err[k], limit[k], scale[k])
     del out_t, dp_t, dx_t
-    ms = {"fwd": interleaved(lambda: hp.hashgrid_planes_fwd(planes, x, spec),
-                             lambda: hp.hashgrid_planes_fwd_torch(planes, x, spec)),
-          "bwd": interleaved(lambda: hp.hashgrid_planes_bwd(planes, x, g, spec),
-                             lambda: hp.hashgrid_planes_bwd_torch(planes, x, g, spec))}
+    kern = {"fwd": lambda: hp.hashgrid_planes_fwd(planes, x, spec), "bwd": lambda: hp.hashgrid_planes_bwd(planes, x, g, spec)}
+    ms = {"fwd": interleaved(kern["fwd"], lambda: hp.hashgrid_planes_fwd_torch(planes, x, spec)),
+          "bwd": interleaved(kern["bwd"], lambda: hp.hashgrid_planes_bwd_torch(planes, x, g, spec))}
+    dev = {k: device_ms(fn) for k, fn in kern.items()}
     for k, (k_ms, t_ms) in ms.items():
-        print(f"[time] planes {k} N={N_MAP}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms")
+        print(f"[time] planes {k} N={N_MAP}: kernel {k_ms:.4f} ms, device {dev[k]:.4f} ms, twin {t_ms:.4f} ms")
     # Bounds as for K1-K3; K9's operations per corner are K2's and K3's
     # together (the weight once): 2 + 4 + 10.
     pl = N_MAP * spec.n_levels
@@ -346,16 +652,48 @@ def check_hashgrid_planes(spec, device):
              max(err["dx"], err["dplanes"])))
     # no single PyTorch call computes a hash-grid encoding or its gradients
     return [{"name": name, "route": "cuda", "source": src, "replaces": rep, "counter": None,
-             "max_abs_err": e, "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
+             "max_abs_err": e, "ms": ms[k][0], "device_ms": dev[k], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
              "bound_by": bounds[k][1], "library_ms": None}
             for name, k, rep, e in rows]
+
+
+def office_surface_points(device, n_rays: int = 4096):
+    """Co-SLAM's mapping samples on office frame 0 at 600x340 at its pose,
+    normalised to the scene's bounds as the model encodes them: 4,096 random
+    pixels x 43 depth-guided samples (32 uniform, 11 within 10 cm of the
+    surface), [N_MAP, 3]."""
+    import torch
+
+    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
+    from xrdslam_tpu_torch.configs.registry import algorithm_configs
+    from xrdslam_tpu_torch.ops.sampling import camera_ray_dirs, coslam_z_vals
+
+    ds = SyntheticDataset(f"n_frames=1,height={HEIGHT},width={WIDTH},scene=office", device=str(device))
+    _, _, depth, pose = ds[0]
+    c = algorithm_configs["co-slam"].xrdslam.algorithm.model
+    gen = torch.Generator(device=device).manual_seed(0)
+    u = torch.randint(0, WIDTH, (n_rays,), generator=gen, device=device)
+    v = torch.randint(0, HEIGHT, (n_rays,), generator=gen, device=device)
+    c2w = torch.as_tensor(np.asarray(pose, np.float32), device=device)
+    rays_d = camera_ray_dirs(ds.get_camera(), device)[v, u] @ c2w[:3, :3].T
+    d = torch.as_tensor(depth, device=device)[v, u][:, None]
+    z = coslam_z_vals(d, n_rays, c.cam_near, c.cam_far, c.training_n_sample_d, c.training_range_d,
+                      c.training_n_range_d, False)
+    pts = c2w[:3, 3] + rays_d[:, None, :] * z[..., None]
+    b = torch.as_tensor(ds.bounds, dtype=torch.float32, device=device)
+    return ((pts - b[:, 0]) / (b[:, 1] - b[:, 0])).reshape(-1, 3).contiguous()
 
 
 def check_scatter_coslam(spec, device):
     """K4 at the shapes Co-SLAM's encodings give it (mapping: N = 176,128
     points): the packed hash's finest level (rows of 16 into T = 65,536) and
     the tri-plane's finer scale (rows of 4 x 8 moments into 512^2 cells),
-    rows from the cells of random points; returns the records."""
+    rows from the cells of uniform random points (shapes that the main
+    paths no longer launch: no launches in the record); and the main paths'
+    launches on office surface samples (``office_surface_points``): the
+    packed hash's over its 16 levels stacked and the tri-plane's over its 6
+    planes stacked. Times each main-path launch against one launch per
+    level or plane; returns the records."""
     import torch
 
     from xrdslam_tpu_torch.ops import hashgrid_packed, triplane
@@ -364,36 +702,50 @@ def check_scatter_coslam(spec, device):
     rng = np.random.default_rng(2)
     x = torch.as_tensor(rng.uniform(0.0, 1.0, (N_MAP, 3)).astype(np.float32), device=device)
     u0, _ = triplane._cells(x, 512)
+    surface = office_surface_points(device)
+    n = surface.shape[0]
+    rid, _ = hashgrid_packed._cells(surface, spec)
+    level_rows = [t.shape[0] for t in hashgrid_packed.pack_gather_tables(hashgrid_packed.packed_init(spec), spec)]
+    stacked, offsets = hashgrid_packed.stacked_rows(rid, level_rows)
+    planes = []  # the tri-plane's 6 planes stacked row-wise, as triplane._splat stacks them
+    for R in (128, 512):
+        cells, _ = triplane._cells(surface, R)
+        planes += [((cells[:, a] * R + cells[:, b]), R) for a, b in triplane.PLANES]
+    first = np.cumsum([0] + [R * R for _, R in planes])
+    all_ids = torch.cat([r + int(f) for (r, _), f in zip(planes, first)]).to(torch.int32)
+    # name -> (ids, width, rows, whose launches the record carries)
     cases = {
-        "scatter_add[packed hash]": (hashgrid_packed._cells(x, spec)[0][:, -1].to(torch.int32), 16, spec.table_size),
-        "scatter_add[triplane]": ((u0[:, 0] * 512 + u0[:, 1]).to(torch.int32), 32, 512 * 512),
+        "scatter_add[packed hash]": (hashgrid_packed._cells(x, spec)[0][:, -1].to(torch.int32), 16, spec.table_size,
+                                     None),
+        "scatter_add[triplane]": ((u0[:, 0] * 512 + u0[:, 1]).to(torch.int32), 32, 512 * 512, None),
+        "scatter_add[packed hash, office surface]": (stacked, 16, offsets[-1], "scatter_add[co-slam@packed]"),
+        "scatter_add[triplane, office surface]": (all_ids, 32, int(first[-1]), "scatter_add[co-slam@protocol]"),
     }
-    records = []
-    for name, (idx, width, rows) in cases.items():
-        idx = idx.contiguous()
-        g = torch.as_tensor(rng.standard_normal((N_MAP, width)).astype(np.float32), device=device)
-        acc_k = sc.scatter_add(idx, g, rows)
-        torch.cuda.synchronize()
-        acc_t = sc.scatter_add_torch(idx, g, rows)
-        err = float((acc_k - acc_t).abs().max())
-        scale = float(acc_t.abs().max())
-        check(name, err, BWD_RTOL * scale, scale)
-        idx_long = idx.long()
-        lib_out = torch.empty((rows, width), device=device)
-
-        def index_add():
-            lib_out.zero_()
-            lib_out.index_add_(0, idx_long, g)
-
-        k_ms, t_ms = interleaved(lambda: sc.scatter_add(idx, g, rows), lambda: sc.scatter_add_torch(idx, g, rows))
-        lib_ms = min(cuda_ms(index_add) for _ in range(2))
-        b_ms, by = bound(nbytes(idx, g, acc_k), int((g != 0).sum()))
-        print(f"[time] {name}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms, index_add_ {lib_ms:.4f} ms; "
-              f"bound {b_ms:.4f} ms ({by}); device time (profiler) kernel "
-              f"{device_ms(lambda: sc.scatter_add(idx, g, rows)):.4f} ms, index_add_ {device_ms(index_add):.4f} ms")
+    records, g_of = [], {}
+    for name, (idx, width, rows, counter) in cases.items():
+        g = g_of[name] = torch.as_tensor(rng.standard_normal((idx.shape[0], width)).astype(np.float32), device=device)
+        rec = scatter_case(name, idx.contiguous(), g, rows, device)
         records.append({"name": name, "route": "cuda", "source": "xrdslam_tpu_torch/kernels/scatter.cu",
-                        "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": name, "max_abs_err": err,
-                        "ms": k_ms, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms})
+                        "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": counter, **rec})
+    # The levers: the main paths' one launch over the packed hash's 16
+    # levels and over the tri-plane's 6 planes, against one launch per level
+    # or plane, on the surface samples (orderings included)
+    g, gm = g_of["scatter_add[packed hash, office surface]"], g_of["scatter_add[triplane, office surface]"]
+    levers = {
+        f"packed hash, office surface: one launch over {spec.n_levels} levels":
+            ((stacked, g, offsets[-1]),
+             [(rid[:, l].to(torch.int32).contiguous(), g.reshape(n, -1, 16)[:, l].contiguous(),
+               offsets[l + 1] - offsets[l]) for l in range(spec.n_levels)]),
+        "tri-plane, office surface: one launch over 6 planes":
+            ((all_ids, gm, int(first[-1])),
+             [(r.to(torch.int32).contiguous(), gm[k * n:(k + 1) * n], R * R) for k, (r, R) in enumerate(planes)]),
+    }
+    for what, (one, per) in levers.items():
+        t_one = min(cuda_ms(lambda: sc.scatter_add(*one)) for _ in range(2))
+        t_per = min(cuda_ms(lambda: [sc.scatter_add(*a) for a in per]) for _ in range(2))
+        print(f"[lever] {what} {t_one:.4f} ms, one per level or plane {t_per:.4f} ms (device "
+              f"{device_ms(lambda: sc.scatter_add(*one)):.4f} and "
+              f"{device_ms(lambda: [sc.scatter_add(*a) for a in per]):.4f})")
     return records
 
 
@@ -474,7 +826,6 @@ def check_raster_at(device, k_per_tile: int, with_scatter: bool):
     import torch
 
     from xrdslam_tpu_torch.ops import gaussian_raster as gr
-    from xrdslam_tpu_torch.ops import scatter as sc
 
     tiled, gout, tiles, mask, G, frame_depth = raster_inputs(device, k_per_tile)
     ntx, nty = gout.shape[1] // 16, gout.shape[0] // 16
@@ -490,17 +841,13 @@ def check_raster_at(device, k_per_tile: int, with_scatter: bool):
     err = {"raster_fwd": float((out_k - out_t).abs().max()), "raster_bwd": float((dg_k - dg_t).abs().max())}
     scale = {"raster_fwd": float(out_t.abs().max()), "raster_bwd": float(dg_t.abs().max())}
     limit = {"raster_fwd": FWD_ATOL, "raster_bwd": BWD_RTOL * scale["raster_bwd"]}
-    if with_scatter:
-        idx = tiles.reshape(-1).contiguous()
-        g_rows = dg_t.reshape(-1, gr.ROW).contiguous()  # K4's input on the main path: K6's output
-        acc_k = sc.scatter_add(idx, g_rows, G)
-        acc_t = sc.scatter_add_torch(idx, g_rows, G)
-        torch.cuda.synchronize()
-        err["scatter_add"] = float((acc_k - acc_t).abs().max())
-        scale["scatter_add"] = float(acc_t.abs().max())
-        limit["scatter_add"] = BWD_RTOL * scale["scatter_add"]
     for name in err:
         check(name + tag, err[name], limit[name], scale[name])
+    if with_scatter:
+        # K4's input on the main path: K6's output; the main path sums it on
+        # its binning's ordering (masked slots left out), built once
+        k4 = scatter_case("scatter_add", tiles.reshape(-1).contiguous(), dg_t.reshape(-1, gr.ROW).contiguous(), G,
+                          device, order=gr.Binning(tiles, mask).order(G))
     del out_t, dg_t
 
     ms = {
@@ -510,18 +857,6 @@ def check_raster_at(device, k_per_tile: int, with_scatter: bool):
     }
     dev_ms = {"raster_fwd": device_ms(lambda: gr.raster_fwd(tiled, ntx, nty)),
               "raster_bwd": device_ms(lambda: gr.raster_bwd(tiled, gout, out_k, ntx, nty))}
-    lib_ms = {"raster_fwd": None, "raster_bwd": None}
-    if with_scatter:
-        ms["scatter_add"] = interleaved(lambda: sc.scatter_add(idx, g_rows, G),
-                                        lambda: sc.scatter_add_torch(idx, g_rows, G))
-        lib_out = torch.empty((G, gr.ROW), device=device)
-
-        def library():
-            lib_out.zero_()
-            lib_out.index_add_(0, idx, g_rows)
-
-        lib_ms["scatter_add"] = min(cuda_ms(library), cuda_ms(library))
-        print(f"[time] scatter_add : index_add_ {lib_ms['scatter_add']:.4f} ms")
     for name, (k_ms, t_ms) in ms.items():
         dev = f", device {dev_ms[name]:.4f} ms" if name in dev_ms else ""
         print(f"[time] {name + tag:12s}: kernel {k_ms:.4f} ms{dev}, twin {t_ms:.4f} ms")
@@ -533,26 +868,24 @@ def check_raster_at(device, k_per_tile: int, with_scatter: bool):
     # forward's 12 before the channels, g.c 16, contribution and prefix 3,
     # dalpha 4, the common term 2, 4 + 8 products, and 12 sums over pixels).
     # Special-function operations per pair: two exp and a log1p, and in the
-    # backward a division. K4: one add per nonzero entry. Bytes: every input
-    # read once and every output written once.
+    # backward a division. Bytes: every input read once and every output
+    # written once.
     pairs = 256 * int(mask.sum())
     bounds = {
         "raster_fwd": bound(nbytes(tiled, out_k), 28 * pairs, 3 * pairs),
         "raster_bwd": bound(nbytes(tiled, gout, out_k, dg_k), 60 * pairs, 4 * pairs),
     }
-    if with_scatter:
-        bounds["scatter_add"] = bound(nbytes(idx, g_rows, acc_k), int((g_rows != 0).sum()))
     for name, (b_ms, by) in bounds.items():
-        live = f"; {pairs} live (pixel, slot) pairs" if name != "scatter_add" else ""
-        print(f"[bound] {name + tag}: {b_ms:.4f} ms ({by}{live})")
-    src = "xrdslam_tpu_torch/kernels/"
-    rows = (("raster_fwd", "gaussian_raster.cu", "xrdslam_tpu/ops/gaussian_raster.py:239"),
-            ("raster_bwd", "gaussian_raster.cu", "xrdslam_tpu/ops/gaussian_raster.py:265"),
-            ("scatter_add", "scatter.cu", "xrdslam_tpu/ops/pallas_scatter.py:38"))
-    return [{"name": name + tag, "route": "cuda", "source": src + f, "replaces": rep, "counter": name + tag,
-             "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
-             "bound_by": bounds[name][1], "library_ms": lib_ms[name]}
-            for name, f, rep in rows if name in ms]
+        print(f"[bound] {name + tag}: {b_ms:.4f} ms ({by}; {pairs} live (pixel, slot) pairs)")
+    src, ref = "xrdslam_tpu_torch/kernels/gaussian_raster.cu", "xrdslam_tpu/ops/gaussian_raster.py"
+    records = [{"name": name + tag, "route": "cuda", "source": src, "replaces": f"{ref}:{line}", "counter": name + tag,
+                "max_abs_err": err[name], "ms": ms[name][0], "device_ms": dev_ms[name], "plain_ms": ms[name][1],
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+               for name, line in (("raster_fwd", 239), ("raster_bwd", 265))]
+    if with_scatter:
+        records.append({"name": "scatter_add" + tag, "route": "cuda", "source": "xrdslam_tpu_torch/kernels/scatter.cu",
+                        "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": "scatter_add" + tag, **k4})
+    return records
 
 
 def check_point_table(device):
@@ -564,7 +897,6 @@ def check_point_table(device):
     from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
     from xrdslam_tpu_torch.configs.registry import algorithm_configs
     from xrdslam_tpu_torch.ops import row_gather as rg
-    from xrdslam_tpu_torch.ops import scatter as sc
     from xrdslam_tpu_torch.ops.point_table import hash_probe, knn_query
 
     ds = SyntheticDataset(f"n_frames=1,height={HEIGHT},width={WIDTH},scene=office", device=str(device))
@@ -625,64 +957,42 @@ def check_point_table(device):
     nb = nb.reshape(-1).contiguous()
     g = torch.randn((nb.shape[0], m.c_dim), generator=gen, device=device)
     R = m.max_points
-    acc_k = sc.scatter_add(nb, g, R)
-    acc_t = sc.scatter_add_torch(nb, g, R)
-    torch.cuda.synchronize()
-    err["scatter_add[table_lookup]"] = float((acc_k - acc_t).abs().max())
-    scale = float(acc_t.abs().max())
-    check("scatter_add[table_lookup]", err["scatter_add[table_lookup]"], BWD_RTOL * scale, scale)
-    print(f"[pointmap] table_lookup: {nb.shape[0]} rows of {m.c_dim} into {R}")
+    print(f"[pointmap] table_lookup: {nb.shape[0]} rows of {m.c_dim} into {R}; {int(torch.unique(nb).numel())} "
+          f"distinct, the most on one row {int(torch.bincount(nb.long()).max())}")
+    k4 = scatter_case("scatter_add[table_lookup]", nb, g, R, device)
 
     idx_long = idx.long()
-    nb_long = nb.long()
-    lib_out = torch.empty((R, m.c_dim), device=device)
-
-    def index_add():
-        lib_out.zero_()
-        lib_out.index_add_(0, nb_long, g)
-
-    ms = {
-        "row_gather": interleaved(lambda: rg.row_gather_rows(table, idx), lambda: rg.row_gather_torch(table, idx)),
-        "row_gather[C=128]": interleaved(lambda: rg.row_gather_rows(table128, idx),
-                                         lambda: rg.row_gather_torch(table128, idx)),
-        "scatter_add[table_lookup]": interleaved(lambda: sc.scatter_add(nb, g, R),
-                                                 lambda: sc.scatter_add_torch(nb, g, R)),
-    }
-    lib = {
-        "row_gather": min(cuda_ms(lambda: torch.index_select(table, 0, idx_long)) for _ in range(2)),
-        "row_gather[C=128]": min(cuda_ms(lambda: torch.index_select(table128, 0, idx_long)) for _ in range(2)),
-        "scatter_add[table_lookup]": min(cuda_ms(index_add) for _ in range(2)),
-    }
+    kern = {"row_gather": lambda: rg.row_gather_rows(table, idx),
+            "row_gather[C=128]": lambda: rg.row_gather_rows(table128, idx)}
+    ms = {"row_gather": interleaved(kern["row_gather"], lambda: rg.row_gather_torch(table, idx)),
+          "row_gather[C=128]": interleaved(kern["row_gather[C=128]"], lambda: rg.row_gather_torch(table128, idx))}
+    lib_fn = {"row_gather": lambda: torch.index_select(table, 0, idx_long),
+              "row_gather[C=128]": lambda: torch.index_select(table128, 0, idx_long)}
+    lib = {name: min(cuda_ms(fn) for _ in range(2)) for name, fn in lib_fn.items()}
+    dev = {name: (device_ms(kern[name]), device_ms(lib_fn[name])) for name in kern}
     for name, (k_ms, t_ms) in ms.items():
-        print(f"[time] {name}: kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms, library {lib[name]:.4f} ms")
-    dev = {
-        "row_gather": (device_ms(lambda: rg.row_gather_rows(table, idx)),
-                       device_ms(lambda: torch.index_select(table, 0, idx_long))),
-        "row_gather[C=128]": (device_ms(lambda: rg.row_gather_rows(table128, idx)),
-                              device_ms(lambda: torch.index_select(table128, 0, idx_long))),
-        "scatter_add[table_lookup]": (device_ms(lambda: sc.scatter_add(nb, g, R)), device_ms(index_add)),
-    }
-    for name, (k_ms, l_ms) in dev.items():
-        print(f"[time] {name}: device time (profiler) kernel {k_ms:.4f} ms, library {l_ms:.4f} ms")
-    # Bounds. K7: each distinct row read once, each output row written once,
-    # the ids read; no arithmetic. K4: as for SplaTAM's shape.
+        print(f"[time] {name}: kernel {k_ms:.4f} ms (device {dev[name][0]:.4f}), twin {t_ms:.4f} ms, index_select "
+              f"{lib[name]:.4f} ms (device {dev[name][1]:.4f})")
+    # Bounds: each distinct row read once, each output row written once, the
+    # ids read; no arithmetic.
     distinct = int(torch.unique(idx).numel())
     bounds = {
         "row_gather": bound(distinct * table.shape[1] * 4 + nbytes(got["row_gather"], idx), 0),
         "row_gather[C=128]": bound(distinct * 128 * 4 + nbytes(got["row_gather[C=128]"], idx), 0),
-        "scatter_add[table_lookup]": bound(nbytes(nb, g, acc_k), int((g != 0).sum())),
     }
     for name, (b_ms, by) in bounds.items():
         print(f"[bound] {name}: {b_ms:.4f} ms ({by})")
-    rows = (("row_gather", "row_gather.cu", "xrdslam_tpu/ops/row_gather.py:47", "row_gather"),
+    rows = (("row_gather", "xrdslam_tpu/ops/row_gather.py:47", "row_gather"),
             # no path gathers at width 128: the main path launches K7 at 1024 only
-            ("row_gather[C=128]", "row_gather.cu", "xrdslam_tpu/ops/row_gather.py:29", None),
-            ("scatter_add[table_lookup]", "scatter.cu", "xrdslam_tpu/ops/pallas_scatter.py:38",
-             "scatter_add[point-slam]"))
-    return [{"name": name, "route": "cuda", "source": "xrdslam_tpu_torch/kernels/" + f, "replaces": rep,
-             "counter": counter, "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
-             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": lib[name]}
-            for name, f, rep, counter in rows]
+            ("row_gather[C=128]", "xrdslam_tpu/ops/row_gather.py:29", None))
+    records = [{"name": name, "route": "cuda", "source": "xrdslam_tpu_torch/kernels/row_gather.cu", "replaces": rep,
+                "counter": counter, "max_abs_err": err[name], "ms": ms[name][0], "device_ms": dev[name][0],
+                "plain_ms": ms[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": lib[name]}
+               for name, rep, counter in rows]
+    return records + [{"name": "scatter_add[table_lookup]", "route": "cuda",
+                       "source": "xrdslam_tpu_torch/kernels/scatter.cu",
+                       "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": "scatter_add[point-slam]", **k4}]
 
 
 def pointslam_schedule(cfg, n_frames: int):
@@ -699,21 +1009,18 @@ def pointslam_schedule(cfg, n_frames: int):
             "scatter_add": sum(g + 2 * (it - g) for g, it in zip(geo, iters))}
 
 
-def coslam_scatter_schedule(cfg, n_frames: int, spec, encoding: str) -> int:
+def coslam_scatter_schedule(cfg, n_frames: int, encoding: str) -> int:
     """K4 launches of a Co-SLAM run whose frames are mapped every
-    ``map_every`` and on the last frame: the packed hash scatters one table
-    gradient per level for each encode that a mapping backward
-    differentiates (the rays'; after the first mapping also the smoothness
-    grid's); the tri-plane one per plane and scale for the rays' encode
-    (its smoothness is a TV on the planes). Tracking's tables are
-    constants: none."""
+    ``map_every`` and on the last frame: the packed hash scatters its tables'
+    gradient (all levels in one launch) for each encode that a mapping
+    backward differentiates (the rays'; after the first mapping also the
+    smoothness grid's); the tri-plane its planes' moments (all planes and
+    scales in one launch) for the rays' encode (its smoothness is a TV on the
+    planes). Tracking's tables are constants: none."""
     a, t = cfg.xrdslam.algorithm, cfg.xrdslam.tracker
     n_later = sum(1 for i in range(1, n_frames) if i % t.map_every == 0 or i == n_frames - 1)
     first, later = a.mapping_first_n_iters, a.mapping_n_iters * n_later
-    if encoding == "triplane":
-        per = 3 * len(cfg.xrdslam.algorithm.model.triplane_resolutions)
-        return per * (first + later)
-    return spec.n_levels * (first + 2 * later)
+    return first + later if encoding == "triplane" else first + 2 * later
 
 
 # ---------------------------------------------------------------------------
@@ -1006,30 +1313,12 @@ def raster_variants(device) -> None:
     from xrdslam_tpu_torch import kernels
     from xrdslam_tpu_torch.ops import gaussian_raster as gr
 
-    src = (kernels.SOURCE_DIR / "gaussian_raster.cu").read_text()
-    out_dir = kernels.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edits in RASTER_VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"raster variant {name}: {old!r} is not in gaussian_raster.cu")
-            text = text.replace(old, new)
-        (out_dir / f"{name}.cu").write_text(text)
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on raster variant {name}:\n{err}")
-        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        p, i = ctypes.c_void_p, ctypes.c_int
+    libs = build_variants("gaussian_raster", RASTER_VARIANTS, kernels.BUILD_DIR / "variants")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib in [kernels.load("gaussian_raster"), *libs.values()]:
         lib.xr_raster_fwd.argtypes = [p, p, i, i, i, p]
         lib.xr_raster_bwd.argtypes = [p, p, p, p, i, i, i, p]
         lib.xr_cuda_error_string.argtypes, lib.xr_cuda_error_string.restype = [i], ctypes.c_char_p
-        libs[name] = lib
     for k_per_tile in (256, SPLATAM_GATE["algorithm.model.k_per_tile"]):
         tiled, gout, tiles, _, _, _ = raster_inputs(device, k_per_tile)
         ntx, nty = gout.shape[1] // 16, gout.shape[0] // 16
@@ -1038,7 +1327,7 @@ def raster_variants(device) -> None:
         dg_t = gr.raster_bwd_torch(tiled, gout, img_t, ntx, nty)
         img, dg = torch.empty_like(img_t), torch.empty_like(tiled)
         stream = torch.cuda.current_stream().cuda_stream
-        for name, lib in {"shipped": gr._lib(), **libs}.items():
+        for name, lib in {"shipped": kernels.load("gaussian_raster"), **libs}.items():
             def fwd():
                 kernels.check(lib, lib.xr_raster_fwd(tiled.data_ptr(), img.data_ptr(), n_tiles, k, ntx, stream), name)
 
@@ -1059,18 +1348,95 @@ def raster_variants(device) -> None:
         torch.cuda.empty_cache()
 
 
-def pointslam_repeat(n_runs: int) -> None:
+def trajectory_digest(pipeline) -> str:
+    """A digest of the bits of a run's estimated poses."""
+    import hashlib
+
+    return hashlib.sha1(np.ascontiguousarray(np.asarray(pipeline.algorithm.estimate_c2w_list)).tobytes()).hexdigest()[:16]
+
+
+def repeat_runs(pointslam: int, protocol: int) -> None:
     """Point-SLAM's gated main path (registry settings, 12 office frames)
-    ``n_runs`` times in one process, each run's ATE beside its gate and
-    nothing gated: the spread that fp32 atomics leave between runs of the
-    same code and seed."""
+    ``pointslam`` times, then Co-SLAM at the accuracy protocol (tri-plane,
+    200 frames, seed 0) and its row ``protocol`` times, in one process:
+    each run's ATE (full precision) beside its gate, a digest of its poses'
+    bits, and the protocol rows; nothing gated. Prints whether the runs of
+    each kind were identical."""
     import torch
 
-    data = f"n_frames={POINTSLAM_FRAMES},height={HEIGHT},width={WIDTH},scene=office"
-    for i in range(n_runs):
-        pipeline, res = run_slam("point-slam", data, ("row_gather", "scatter_add"), tag=f"#{i}")
-        print(f"[repeat] point-slam run {i}: ATE {res['ate_rmse_cm']:.4f} cm, gate "
-              f"{min(ATE_LIMIT_CM, FROZEN_ATE_SHARE * res['frozen_ate_cm']):.4f} cm", flush=True)
+    office = f"height={HEIGHT},width={WIDTH},scene=office"
+    seen = {}
+    for i in range(pointslam):
+        pipeline, res = run_slam("point-slam", f"n_frames={POINTSLAM_FRAMES},{office}", ("row_gather", "scatter_add"),
+                                 tag=f"#{i}")
+        digest = trajectory_digest(pipeline)
+        seen.setdefault("point-slam", []).append((res["ate_rmse_cm"], digest))
+        print(f"[repeat] point-slam run {i}: ATE {res['ate_rmse_cm']!r} cm, gate "
+              f"{min(ATE_LIMIT_CM, FROZEN_ATE_SHARE * res['frozen_ate_cm']):.4f} cm, poses {digest}", flush=True)
+        del pipeline
+        torch.cuda.empty_cache()
+    bounds = office_bounds(office)
+    for i in range(protocol):
+        pipeline, res = run_slam("co-slam", f"n_frames={PROTOCOL_FRAMES},{office}", ("scatter_add",),
+                                 tag=f"@protocol#{i}", config=protocol_config(bounds))
+        row = protocol_row(pipeline, res["ate_rmse_cm"])
+        digest = trajectory_digest(pipeline)
+        seen.setdefault("co-slam@protocol", []).append((json.dumps(row), digest))
+        print(f"[repeat] co-slam@protocol run {i}: ATE {res['ate_rmse_cm']!r} cm, poses {digest}, row "
+              f"{json.dumps(row)}", flush=True)
+        del pipeline
+        torch.cuda.empty_cache()
+    for name, runs in seen.items():
+        print(f"[repeat] {name}: {len(runs)} runs, identical: {all(r == runs[0] for r in runs)}")
+
+
+def office_bounds(office: str):
+    """The synthetic office's bounds as a nested list (the mapping bound)."""
+    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
+
+    return SyntheticDataset(office).bounds.tolist()
+
+
+def determinism_probe() -> None:
+    """Each main path, short, under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: every operation torch names as having no
+    deterministic implementation on the card, with the number of its
+    warnings. Co-SLAM (packed hash, 8 frames), Co-SLAM at the protocol's
+    configuration (tri-plane, 8 frames, then one ``render_img``), SplaTAM
+    (registry settings, 3 frames) and Point-SLAM (registry settings, 3
+    frames). Nothing is gated."""
+    import collections
+    import warnings
+
+    import torch
+
+    office = f"height={HEIGHT},width={WIDTH},scene=office"
+    bounds = office_bounds(office)
+    bench = {"algorithm.mapping_bound": bounds, "algorithm.max_keyframes": 8}
+    runs = (("co-slam", "@packed", 8, bench, None), ("co-slam", "@protocol", 8, None, protocol_config(bounds)),
+            ("splaTAM", "", 3, None, None), ("point-slam", "", 3, None, None))
+    for algorithm, tag, frames, overrides, config in runs:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                # a control: an operation torch names on every card
+                torch.histc(torch.rand(100, device="cuda"))
+                pipeline, _ = run_slam(algorithm, f"n_frames={frames},{office}", overrides=overrides,
+                                       tag=tag + "#probe", config=config)
+                if tag == "@protocol":
+                    _, _, gt_depth, _ = pipeline.dataset[0]
+                    pipeline.algorithm.render_img(np.asarray(pipeline.algorithm.estimate_c2w_list[0]),
+                                                  gt_depth=gt_depth, idx=0)
+                    torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        named = collections.Counter(str(w.message).split("\n")[0][:200] for w in caught
+                                    if "deterministic" in str(w.message))
+        print(f"[determinism] {algorithm}{tag}: {len(named)} operations named (the control histc among them), "
+              f"{len(caught)} warnings in all")
+        for msg, count in named.most_common():
+            print(f"[determinism]   x{count:<6d} {msg}")
         del pipeline
         torch.cuda.empty_cache()
 
@@ -1094,10 +1460,10 @@ def main(argv) -> None:
     from xrdslam_tpu_torch.pipeline.slam import resolve_device
 
     device = resolve_device("cuda")
-    name = torch.cuda.get_device_name(0)
+    card = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"[card] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
     sources = ("hashgrid", "gaussian_raster", "scatter", "row_gather")
@@ -1114,18 +1480,25 @@ def main(argv) -> None:
     if argv == ["--raster-variants"]:
         raster_variants(device)
         return
-    if len(argv) == 2 and argv[0] == "--pointslam-repeat":
-        pointslam_repeat(int(argv[1]))
+    if argv == ["--determinism-probe"]:
+        determinism_probe()
         return
-    if argv:
-        raise SystemExit(f"chip_smoke.py: unknown arguments {argv}")
+    repeats = dict(zip(argv[::2], argv[1::2]))
+    if argv and len(argv) % 2 == 0 and set(repeats) <= {"--pointslam-repeat", "--protocol-repeat"}:
+        repeat_runs(int(repeats.get("--pointslam-repeat", 0)), int(repeats.get("--protocol-repeat", 0)))
+        return
 
     # the office spec, as the Co-SLAM run's model builds it
     model_cfg = algorithm_configs["co-slam"].xrdslam.algorithm.model
     ds = SyntheticDataset(f"n_frames=1,height={HEIGHT},width={WIDTH},scene=office")
     spec = JointEncoding(model_cfg, ds.get_camera(), ds.bounds).spec
     print(f"[spec] levels {spec.n_levels}, T=2^{spec.log2_table_size}, res {spec.resolutions}, "
-          f"dense {sum(spec.dense)}")
+          f"dense {sum(spec.dense)}, dense entries {[(r + 1) ** 3 for r, d in zip(spec.resolutions, spec.dense) if d]}")
+    if argv == ["--scatter-variants"]:
+        scatter_variants(spec, device)
+        return
+    if argv:
+        raise SystemExit(f"chip_smoke.py: unknown arguments {argv}")
     records = check_hashgrid(spec, device)
     records += check_hashgrid_planes(spec, device)
     records += check_scatter_coslam(spec, device)
@@ -1139,11 +1512,12 @@ def main(argv) -> None:
     office = f"height={HEIGHT},width={WIDTH},scene=office"
     # the reference benchmark's Co-SLAM settings: the registry's entry with
     # the scene's bounds and a keyframe table sized to the run
-    bounds = SyntheticDataset(office).bounds.tolist()
+    bounds = office_bounds(office)
     coslam_data = f"n_frames={COSLAM_FRAMES},{office}"
     bench = {"algorithm.mapping_bound": bounds, "algorithm.max_keyframes": max(COSLAM_FRAMES // 5 + 2, 8)}
     # the exact hash grid (K1-K3), an option of the registry's entry
-    pipeline, res = run_slam("co-slam", coslam_data, ("hashgrid_fwd", "hashgrid_bwd_dx", "hashgrid_bwd_dtable"),
+    pipeline, res = run_slam("co-slam", coslam_data, ("hashgrid_fwd", "hashgrid_bwd_dx", "hashgrid_bwd_dtable",
+                                                      "hashgrid_bwd_dx_dtable"),
                              {**bench, "algorithm.model.hash_packed": False}, ATE_LIMIT_CM, tag="@exact")
     launches = dict(res["launches"])
     profile_coslam(pipeline, "co-slam@exact")
@@ -1160,11 +1534,11 @@ def main(argv) -> None:
         pipeline, res = run_slam("co-slam", data, ("scatter_add",), overrides, ATE_LIMIT_CM, tag=tag, config=config)
         model = pipeline.algorithm.model
         encoding = "triplane" if model.tp_spec is not None else "packed"
-        want = coslam_scatter_schedule(config or algorithm_configs["co-slam"], res["frames"], model.spec, encoding)
+        want = coslam_scatter_schedule(config or algorithm_configs["co-slam"], res["frames"], encoding)
         print(f"[launches] co-slam{tag}: {json.dumps(res['launches'])}; schedule scatter_add {want}")
         if res["launches"]["scatter_add"] != want:
             raise RuntimeError(f"co-slam{tag}: scatter_add launches {res['launches']['scatter_add']} != {want}")
-        launches[f"scatter_add[{'packed hash' if encoding == 'packed' else 'triplane'}]"] = res["launches"]["scatter_add"]
+        launches[f"scatter_add[co-slam{tag}]"] = res["launches"]["scatter_add"]
         if tag == "@protocol":  # before the profile's calls change the map
             protocol_row(pipeline, res["ate_rmse_cm"])
             stamp("co-slam protocol row")
@@ -1204,8 +1578,11 @@ def main(argv) -> None:
     for r in records:
         counter = r.pop("counter")
         r["launches"] = 0 if counter is None else launches[counter]
+        # what a launch costs the host beyond the card's own time
+        print(f"[launch] {r['name']}: CUDA events {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, "
+              f"events - device {1e3 * (r['ms'] - r['device_ms']):.1f} us")
     print(json.dumps({"kernels": records}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

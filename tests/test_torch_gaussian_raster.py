@@ -351,5 +351,5 @@ def test_cuda_scatter_add_matches_twin(n, rows):
     g[: n // 3] = 0.0
     got = tsc.scatter_add(idx, g, rows)
     want = tsc.scatter_add_torch(idx, g, rows)
-    # fp32 atomics add in another order than index_add_
+    # the kernel adds each row in sorted order, index_add_ in another
     assert (got - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1.0)

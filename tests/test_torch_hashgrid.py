@@ -174,7 +174,7 @@ def test_cuda_kernels_match_twin(n):
     want = thf.hashgrid_fwd_torch(table, x, spec)
     dt_w, dx_w = thf.hashgrid_bwd_torch(table, x, g, spec)
     assert (out - want).abs().max().item() <= 1e-5
-    # fp32 atomics sum in another order than the twin
+    # shuffles (dx) and atomics (dtable) sum in another order than the twin
     assert (dx - dx_w).abs().max().item() <= 1e-4 * dx_w.abs().max().item()
     assert (dt - dt_w).abs().max().item() <= 1e-4 * dt_w.abs().max().item()
     # through autograd, a detached table skips the dtable pass (tracking)
@@ -182,3 +182,47 @@ def test_cuda_kernels_match_twin(n):
     (dx_auto,) = torch.autograd.grad(torch.sum(thf.encode(table, xg, spec) * g), [xg])
     assert thf.LAUNCHES["hashgrid_bwd_dtable"] == before["hashgrid_bwd_dtable"] + 1
     assert (dx_auto - dx_w).abs().max().item() <= 1e-4 * dx_w.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [16, 12, 32, 1])
+def test_cuda_dx_is_deterministic(levels):
+    """dx sums a point's levels with warp shuffles, for any L <= 32: the same
+    bits twice, within the tolerance of the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
+    spec = tenc.hashgrid_spec(levels, 2, 16, 16, 319)
+    rng = np.random.default_rng(levels)
+    dev = torch.device("cuda")
+    n = 20_000
+    x = torch.as_tensor(rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32), device=dev)
+    g = torch.as_tensor(rng.standard_normal((n, spec.out_dim)).astype(np.float32), device=dev)
+    table = torch.as_tensor(rng.standard_normal((levels, spec.table_size, 2)).astype(np.float32), device=dev)
+    runs = [thf.hashgrid_bwd(table, x, g, spec, need_dtable=False)[1] for _ in range(2)]
+    both = thf.hashgrid_bwd(table, x, g, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(both[1], runs[0])
+    dt_w, dx_w = thf.hashgrid_bwd_torch(table, x, g, spec)
+    assert (runs[0] - dx_w).abs().max().item() <= 1e-4 * dx_w.abs().max().item()
+    assert (both[0] - dt_w).abs().max().item() <= 1e-4 * dt_w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_dtable_in_one_level0_cell():
+    """Every point in one cell of level 0 (res 16): all their dense-level
+    corner adds land on a few entries of each privatised grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
+    spec = tenc.hashgrid_spec(16, 2, 16, 16, 319)
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    n = 176_128
+    x = torch.as_tensor(rng.uniform(5.0, 6.0, (n, 3)).astype(np.float32) / 16, device=dev)  # cell (5, 5, 5)
+    g = torch.as_tensor(rng.standard_normal((n, spec.out_dim)).astype(np.float32), device=dev)
+    table = torch.as_tensor(rng.standard_normal((16, spec.table_size, 2)).astype(np.float32), device=dev)
+    dt, dx = thf.hashgrid_bwd(table, x, g, spec)
+    torch.cuda.synchronize()
+    dt_w, dx_w = thf.hashgrid_bwd_torch(table, x, g, spec)
+    assert (dt - dt_w).abs().max().item() <= 1e-4 * dt_w.abs().max().item()
+    assert (dx - dx_w).abs().max().item() <= 1e-4 * dx_w.abs().max().item()

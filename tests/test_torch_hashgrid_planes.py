@@ -166,7 +166,7 @@ def test_cuda_kernels_match_twin(n):
     want = thp.hashgrid_planes_fwd_torch(planes, x, spec)
     dp_w, dx_w = thp.hashgrid_planes_bwd_torch(planes, x, g, spec)
     assert (out - want).abs().max().item() <= 1e-5
-    # fp32 atomics sum in another order than the twin
+    # shuffles (dx) and atomics (dplanes) sum in another order than the twin
     assert (dx - dx_w).abs().max().item() <= BWD_RTOL * dx_w.abs().max().item()
     assert (dp - dp_w).abs().max().item() <= BWD_RTOL * dp_w.abs().max().item()
     xg = x.clone().requires_grad_(True)

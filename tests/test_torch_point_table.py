@@ -237,5 +237,5 @@ def test_cuda_scatter_add_at_the_table_lookup_shape():
     (got,) = torch.autograd.grad(tsc.table_lookup(table, idx), [table], g)
     want = tsc.scatter_add_torch(idx.reshape(-1), g.reshape(-1, 32), 262_144)
     assert tsc.LAUNCHES["scatter_add"] == before + 1
-    # fp32 atomics add in another order than index_add_
+    # the kernel adds each row in sorted order, index_add_ in another
     assert (got - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1.0)

@@ -37,7 +37,7 @@ from ..common.frame import Frame
 from ..engine.optimizers import GroupOptimizers
 from ..models.gaussian_splatting import GAUSS_GROUPS, GaussianSplatting, GaussianSplattingConfig
 from ..ops import lie, lie_np
-from ..ops.gaussian_raster import TILE, bin_gaussians_device
+from ..ops.gaussian_raster import TILE, Binning, bin_gaussians_device
 from .base import Algorithm, AlgorithmConfig
 
 Params = Dict[str, torch.Tensor]
@@ -89,14 +89,15 @@ class SplaTAM(Algorithm):
     # ------------------------------------------------------------------
     @torch.no_grad()
     def binning(self, params: Params, dead: torch.Tensor, count: int, w2c: torch.Tensor,
-                max_span: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
+                max_span: int = 4) -> Binning:
         """Tile binning from the current params and pose. max_span 4 in the
         optimization loops (the cap only truncates transient gaussians wider
         than 64 px), 6 for the growth mask and full renders."""
         cam = self.camera
         u, v, depth, sigma = self.model.project(params, w2c)
-        return bin_gaussians_device(u, v, depth, 3.0 * sigma, self.model.alive_mask(dead, count), cam.height,
-                                    cam.width, k_per_tile=self.config.model.k_per_tile, max_span=max_span)
+        return Binning(*bin_gaussians_device(u, v, depth, 3.0 * sigma, self.model.alive_mask(dead, count),
+                                             cam.height, cam.width, k_per_tile=self.config.model.k_per_tile,
+                                             max_span=max_span))
 
     def track_step(self, params: Params, dead: torch.Tensor, count: int, rgb: torch.Tensor, depth: torch.Tensor,
                    t0: torch.Tensor, q0: torch.Tensor, tiles: torch.Tensor, mask: torch.Tensor
@@ -115,9 +116,10 @@ class SplaTAM(Algorithm):
         alive = self.model.alive_mask(dead, count)
         best_loss = torch.full((), 1e10, device=self.device)
         best_t, best_q = t0.clone(), q0.clone()
+        binning = Binning(tiles, mask)  # one binning for every iteration
         for _ in range(self.config.tracking_n_iters):
             w2c = lie.pose_inverse(lie.pose_vec_to_matrix(t, q, rot_rep="quat"))
-            out = self.model.render(frozen, alive, w2c, (tiles, mask), self.ntx, self.nty)
+            out = self.model.render(frozen, alive, w2c, binning, self.ntx, self.nty)
             loss = self.model.get_loss(out, rgb, depth, is_mapping=False)
             g_q, g_t = torch.autograd.grad(loss, [q, t])
             with torch.no_grad():
@@ -144,10 +146,11 @@ class SplaTAM(Algorithm):
         groups = {g: [gp[g]] for g in GAUSS_GROUPS}
         state = opt.init(groups)
         losses = []
+        bins = [Binning(tiles[i], masks[i]) for i in range(n_valid)]  # each kept for every pick of its frame
         for it in range(n_iters):
             fi = int(torch.randint(0, n_valid, (), generator=self.generator))
             alive = self.model.alive_mask(dead, count)
-            out = self.model.render(gp, alive, w2cs[fi], (tiles[fi], masks[fi]), self.ntx, self.nty)
+            out = self.model.render(gp, alive, w2cs[fi], bins[fi], self.ntx, self.nty)
             loss = self.model.get_loss(out, images[fi, ..., :3], images[fi, ..., 3], is_mapping=True)
             grads = torch.autograd.grad(loss, [gp[g] for g in GAUSS_GROUPS], allow_unused=True)
             grads = [torch.zeros_like(gp[g]) if d is None else d for g, d in zip(GAUSS_GROUPS, grads)]
@@ -246,7 +249,7 @@ class SplaTAM(Algorithm):
                               for f in frames])
         w2cs = self._tensor(np.stack([np.linalg.inv(f.get_pose()) for f in frames]))
         bins = [self.binning(self.params, self.dead, count, w) for w in w2cs]
-        tiles, masks = torch.stack([b[0] for b in bins]), torch.stack([b[1] for b in bins])
+        tiles, masks = torch.stack([b.tile_ids for b in bins]), torch.stack([b.tile_mask for b in bins])
         gparams, self.dead, _, _ = self.map_step(
             self.params, self.dead, count, images, w2cs, tiles, masks, len(frames),
             cfg.mapping_first_n_iters if first else cfg.mapping_n_iters)

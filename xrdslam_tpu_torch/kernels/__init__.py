@@ -78,29 +78,43 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def bind(name: str, signatures: Dict[str, List[type]]) -> ctypes.CDLL:
-    """The library of ``<name>.cu`` with ``argtypes`` set for each function
-    in ``signatures`` (every one returns an int error code) and for
-    ``xr_cuda_error_string``. Wrappers of one library may bind different
-    functions of it; each is typed once."""
-    lib = load(name)
-    typed = lib.__dict__.setdefault("_xr_typed", set())
-    for fn, args in signatures.items():
-        if fn not in typed:
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
-            typed.add(fn)
-    if "xr_cuda_error_string" not in typed:
-        lib.xr_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.xr_cuda_error_string.restype = ctypes.c_char_p
-        typed.add("xr_cuda_error_string")
-    return lib
+class Kernel:
+    """One C entry point of ``<lib>.cu``'s library: built, loaded and typed
+    (``argtypes``, an int error code returned) at its first call, then
+    called directly. A call raises on a non-zero code from the launch."""
+
+    def __init__(self, lib: str, fn: str, argtypes: List[type], restype: type = ctypes.c_int):
+        self.lib_name, self.fn_name, self.argtypes, self.restype = lib, fn, argtypes, restype
+        self._fn = None
+
+    def bind(self):
+        """The typed C function (built and loaded at the first call)."""
+        if self._fn is None:
+            lib = load(self.lib_name)
+            fn = getattr(lib, self.fn_name)
+            fn.argtypes, fn.restype = self.argtypes, self.restype
+            lib.xr_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.xr_cuda_error_string.restype = ctypes.c_char_p
+            self._lib, self._fn = lib, fn
+        return self._fn
+
+    def __call__(self, *args) -> None:
+        code = (self._fn or self.bind())(*args)
+        if code != 0:
+            check(self._lib, code, self.fn_name)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise on a non-zero error code from a launch."""
     if code != 0:
         raise RuntimeError(f"{what} failed: {lib.xr_cuda_error_string(code).decode()} (cudaError {code})")
+
+
+def stream(t) -> int:
+    """The raw handle of the current CUDA stream of ``t``'s device."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def on_cpu(t, what: str) -> bool:

@@ -30,10 +30,24 @@
 // rows the TPU's residual would have re-read from device memory).
 //
 // dx (K2, K9) is the gradient at the clamped point with no mask outside
-// [0,1]^3, exactly as the TPU kernels compute it. The per-level terms of a
-// point are summed with fp32 atomics; so is dtable (K3, K9). Atomic sums are
-// not deterministic: their order, and so their last bits, change from run
-// to run.
+// [0,1]^3, exactly as the TPU kernels compute it. A point's levels sit on
+// adjacent lanes of one warp, and their terms are summed with warp shuffles
+// in a fixed order and stored once: dx has the same bits on every run, as
+// the TPU's K2, which sums a point's levels in registers (:216).
+//
+// dtable (K3, K9) is summed with atomics, so its last bits change from run
+// to run (the TPU's K3 keeps a level's planes resident while the points
+// add into them in order, hashgrid_fast.py:95). What held it back was the
+// number of atomics: 16 scalar atomics per (point, level), 45 M per mapping
+// pass at N = 176,128. Here a corner's feature pair is one float2 atomic
+// (sm_90, global memory), and the two corners of an x-pair whose entries
+// form one aligned 16-byte pair (a dense level's e and e + 1 for even e, a
+// hashed level's e and e ^ 1 for even ix: half of them) one float4 atomic:
+// 6 atomics per (point, level) on [L, T, 2] on average, the plane layout
+// keeps its 16 scalar ones. The dense levels accumulated privately in
+// shared memory by blocks of points and flushed once per block were
+// measured slower on the card at this shape and not kept; an owner-ordered
+// sum, which would sort 1.4 M (entry, value) pairs a level, was not built.
 //
 // C interface (bound with ctypes): every function returns a cudaError_t
 // code, 0 on success, after checking cudaGetLastError() for the launch.
@@ -82,11 +96,32 @@ __device__ __forceinline__ float2 load_entry(const float* __restrict__ level, ui
   return __ldg(reinterpret_cast<const float2*>(level) + e);
 }
 
+// Adds (a, b) to entry e: one float2 atomic (sm_90, global memory) where the
+// features are adjacent, two float atomics on the plane layout.
 template <bool kPlanes>
 __device__ __forceinline__ void add_entry(float* level, uint32_t e, uint32_t t, float a, float b) {
+  if (!kPlanes) {
+    atomicAdd(reinterpret_cast<float2*>(level) + e, make_float2(a, b));
+    return;
+  }
   float* d = kPlanes ? level + e : level + 2 * e;
   atomicAdd(d, a);
   atomicAdd(d + (kPlanes ? t : 1u), b);
+}
+
+// Adds w[i] * g to entries e[0] and e[1]: where they are the two entries of
+// one aligned 16-byte pair of [L, T, 2], one float4 atomic (sm_90, global
+// memory), else one add_entry each.
+template <bool kPlanes>
+__device__ __forceinline__ void add_pair(float* level, const uint32_t e[2], uint32_t t, const float w[2], float2 g) {
+  if (!kPlanes && (e[0] ^ e[1]) == 1u) {
+    const int lo = (int)(e[0] & 1u);  // 1 when e[1] is the even entry
+    atomicAdd(reinterpret_cast<float4*>(level) + (e[0] >> 1),
+              make_float4(w[lo] * g.x, w[lo] * g.y, w[1 - lo] * g.x, w[1 - lo] * g.y));
+    return;
+  }
+  add_entry<kPlanes>(level, e[0], t, w[0] * g.x, w[0] * g.y);
+  add_entry<kPlanes>(level, e[1], t, w[1] * g.x, w[1] * g.y);
 }
 
 template <bool kPlanes>
@@ -120,52 +155,70 @@ hashgrid_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x
   reinterpret_cast<float2*>(out)[t] = make_float2(a0, a1);
 }
 
+// Backward, point-major: one thread per (point, level slot), the slots of a
+// point padded to the next power of two lp <= 32, so that a point's levels
+// are adjacent lanes of one warp. dx: each lane's terms for its level, then
+// a butterfly of warp shuffles over the point's lanes in a fixed order, and
+// one store; no atomics, no fill, the same bits on every run. dtable: each
+// (point, level) adds its 8 corners x 2 features into the zeroed table with
+// add_pair's vector atomics.
 template <bool kPlanes>
 __global__ void __launch_bounds__(kThreads)
 hashgrid_bwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
                     const float* __restrict__ g, float* __restrict__ dx,
-                    float* __restrict__ dtable, int64_t n, Levels lv) {
+                    float* __restrict__ dtable, int64_t n, Levels lv, int log2_lp) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n * lv.n_levels) return;
-  const int64_t p = t / lv.n_levels;
-  const int l = (int)(t - p * lv.n_levels);
-  const int res = lv.res[l];
-  const bool dense = lv.dense[l] != 0;
-  const uint32_t mask = (1u << lv.log2_t) - 1u;
-  const float resf = (float)res;
-  float fx, fy, fz;
-  uint32_t ix, iy, iz;
-  cell_axis(__ldg(x + 3 * p + 0), res, &fx, &ix);
-  cell_axis(__ldg(x + 3 * p + 1), res, &fy, &iy);
-  cell_axis(__ldg(x + 3 * p + 2), res, &fz, &iz);
-  const float2 gg = __ldg(reinterpret_cast<const float2*>(g) + t);
-  const uint32_t tsize = 1u << lv.log2_t;
-  const int64_t level_off = (int64_t)l << (lv.log2_t + 1);
-  const float* level = table + level_off;
+  const int64_t p = t >> log2_lp;
+  const int l = (int)(t & ((1 << log2_lp) - 1));
   float ddx = 0.0f, ddy = 0.0f, ddz = 0.0f;
+  if (p < n && l < lv.n_levels) {
+    const int res = lv.res[l];
+    const bool dense = lv.dense[l] != 0;
+    const uint32_t mask = (1u << lv.log2_t) - 1u;
+    const float resf = (float)res;
+    float fx, fy, fz;
+    uint32_t ix, iy, iz;
+    cell_axis(__ldg(x + 3 * p + 0), res, &fx, &ix);
+    cell_axis(__ldg(x + 3 * p + 1), res, &fy, &iy);
+    cell_axis(__ldg(x + 3 * p + 2), res, &fz, &iz);
+    const float2 gg = __ldg(reinterpret_cast<const float2*>(g) + p * lv.n_levels + l);
+    const uint32_t tsize = 1u << lv.log2_t;
+    const int64_t level_off = (int64_t)l << (lv.log2_t + 1);
+    const float* level = table + level_off;
+    // the corners in x-pairs (0, cy, cz), (1, cy, cz): on a dense level their
+    // rows are e and e + 1, on a hashed one e and e ^ 1 when ix is even
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int cx = c >> 2, cy = (c >> 1) & 1, cz = c & 1;
-    const uint32_t e = corner_row(ix + cx, iy + cy, iz + cz, (uint32_t)res, dense, mask);
-    const float wx = cx ? fx : 1.0f - fx;
-    const float wy = cy ? fy : 1.0f - fy;
-    const float wz = cz ? fz : 1.0f - fz;
-    if (dtable != nullptr) {
-      const float w = wx * wy * wz;
-      add_entry<kPlanes>(dtable + level_off, e, tsize, w * gg.x, w * gg.y);
-    }
-    if (dx != nullptr) {
-      const float2 f = load_entry<kPlanes>(level, e, tsize);
-      const float gf = gg.x * f.x + gg.y * f.y;
-      ddx += gf * ((cx ? wy : -wy) * wz * resf);
-      ddy += gf * (wx * (cy ? 1.0f : -1.0f) * wz * resf);
-      ddz += gf * (wx * wy * (cz ? 1.0f : -1.0f) * resf);
+    for (int q = 0; q < 4; ++q) {
+      const int cy = q >> 1, cz = q & 1;
+      const float wy = cy ? fy : 1.0f - fy;
+      const float wz = cz ? fz : 1.0f - fz;
+      const uint32_t e[2] = {corner_row(ix, iy + cy, iz + cz, (uint32_t)res, dense, mask),
+                             corner_row(ix + 1, iy + cy, iz + cz, (uint32_t)res, dense, mask)};
+      const float w[2] = {(1.0f - fx) * wy * wz, fx * wy * wz};
+      if (dtable != nullptr) add_pair<kPlanes>(dtable + level_off, e, tsize, w, gg);
+      if (dx != nullptr) {
+#pragma unroll
+        for (int cx = 0; cx < 2; ++cx) {
+          const float wx = cx ? fx : 1.0f - fx;
+          const float2 f = load_entry<kPlanes>(level, e[cx], tsize);
+          const float gf = gg.x * f.x + gg.y * f.y;
+          ddx += gf * ((cx ? wy : -wy) * wz * resf);
+          ddy += gf * (wx * (cy ? 1.0f : -1.0f) * wz * resf);
+          ddz += gf * (wx * wy * (cz ? 1.0f : -1.0f) * resf);
+        }
+      }
     }
   }
-  if (dx != nullptr) {
-    atomicAdd(dx + 3 * p + 0, ddx);
-    atomicAdd(dx + 3 * p + 1, ddy);
-    atomicAdd(dx + 3 * p + 2, ddz);
+  if (dx == nullptr) return;  // uniform over the grid: every lane of a warp reaches the shuffles
+  for (int off = (1 << log2_lp) >> 1; off > 0; off >>= 1) {
+    ddx += __shfl_xor_sync(0xffffffffu, ddx, off);
+    ddy += __shfl_xor_sync(0xffffffffu, ddy, off);
+    ddz += __shfl_xor_sync(0xffffffffu, ddz, off);
+  }
+  if (l == 0 && p < n) {
+    dx[3 * p + 0] = ddx;
+    dx[3 * p + 1] = ddy;
+    dx[3 * p + 2] = ddz;
   }
 }
 
@@ -198,8 +251,10 @@ int launch_bwd(const float* table, const float* x, const float* g, float* dx, fl
   Levels lv;
   int err = make_levels(n_levels, log2_t, res, dense, &lv);
   if (err != 0 || n == 0 || (dx == nullptr && dtable == nullptr)) return err;
-  hashgrid_bwd_kernel<kPlanes><<<n_blocks(n * n_levels), kThreads, 0, (cudaStream_t)stream>>>(
-      table, x, g, dx, dtable, n, lv);
+  int log2_lp = 0;
+  while ((1 << log2_lp) < n_levels) ++log2_lp;
+  hashgrid_bwd_kernel<kPlanes><<<n_blocks(n << log2_lp), kThreads, 0, (cudaStream_t)stream>>>(
+      table, x, g, dx, dtable, n, lv, log2_lp);
   return (int)cudaGetLastError();
 }
 
@@ -213,8 +268,8 @@ int xr_hashgrid_fwd(const float* table, const float* x, float* out, long long n,
   return launch_fwd<false>(table, x, out, n, n_levels, log2_t, res, dense, stream);
 }
 
-// g [n, L*2] -> dx [n, 3] and/or dtable [L, 2^log2_t, 2], each accumulated
-// with atomics into memory the caller zeroed; a null pointer skips that
+// g [n, L*2] -> dx [n, 3] (every entry written) and/or dtable [L, 2^log2_t,
+// 2] (accumulated into memory the caller zeroed); a null pointer skips that
 // output (tracking passes dtable = null: its table is constant).
 int xr_hashgrid_bwd(const float* table, const float* x, const float* g, float* dx, float* dtable,
                     long long n, int n_levels, int log2_t, const int* res, const int* dense,

@@ -15,13 +15,13 @@ signal) is not ported; the registry ships it off.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple, Type
+from typing import Any, Dict, Type
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.gaussian_raster import N_CH, rasterize
+from ..ops.gaussian_raster import N_CH, Binning, rasterize_binned
 from .base import Model, ModelConfig
 
 # the table's parameter groups, each with its own Adam in mapping
@@ -126,8 +126,10 @@ class GaussianSplatting(Model):
         return u, v, depth, sigma
 
     def render(self, params: Dict[str, torch.Tensor], alive: torch.Tensor, w2c: torch.Tensor,
-               binning: Tuple[torch.Tensor, torch.Tensor], ntx: int, nty: int) -> Dict[str, torch.Tensor]:
-        """Single-pass 8-channel rasterization -> rgb/depth/sil/depth_sq."""
+               binning, ntx: int, nty: int) -> Dict[str, torch.Tensor]:
+        """Single-pass 8-channel rasterization -> rgb/depth/sil/depth_sq.
+        ``binning``: a ``Binning`` (kept over several renders) or a (tile
+        ids, tile mask) pair."""
         cam = self.camera
         u, v, depth, sigma = self.project(params, w2c)
         opacity = torch.sigmoid(params["logit_opacities"][:, 0]) * alive
@@ -138,7 +140,9 @@ class GaussianSplatting(Model):
             (depth * depth)[:, None],
             torch.zeros((depth.shape[0], N_CH - 6), dtype=depth.dtype, device=depth.device),
         ], -1)
-        img = rasterize(u, v, sigma, opacity, ch, binning[0], binning[1], ntx, nty)[: cam.height, : cam.width]
+        if not isinstance(binning, Binning):
+            binning = Binning(*binning)
+        img = rasterize_binned(u, v, sigma, opacity, ch, binning, ntx, nty)[: cam.height, : cam.width]
         return {"rgb": img[..., :3], "depth": img[..., 3], "sil": img[..., 4], "depth_sq": img[..., 5]}
 
     def get_loss(self, out: Dict[str, torch.Tensor], target_rgb: torch.Tensor, target_d: torch.Tensor,

@@ -10,8 +10,9 @@ so a gaussian's footprint on screen is a circle, and one pass renders all
   reference package's NumPy binner, copied for the tests).
 * ``rasterize`` is a ``torch.autograd.Function``: its forward is K5
   (``raster_fwd``), its backward K6 (``raster_bwd``, which also reads the
-  forward's image) and then K4 (``ops.scatter.scatter_add``) to sum each
-  gaussian's per-tile gradients.
+  forward's image) and then K4 (``ops.scatter``) to sum each gaussian's
+  per-tile gradients. ``rasterize_binned`` takes a ``Binning``, which keeps
+  K4's ordering of its slots for every render that uses it.
 
 The kernels are in ``kernels/gaussian_raster.cu``, whose header gives the
 layouts, what bounds them on the card and what the design does about it.
@@ -24,14 +25,14 @@ tensor to the kernel, which raises if it cannot build or launch.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .scatter import scatter_add
+from .scatter import ScatterOrder, scatter_add_ordered, scatter_order
 
 TILE = 16  # pixels per tile side
 ALPHA_MAX = 0.99
@@ -270,10 +271,9 @@ def raster_bwd_torch(tiled: torch.Tensor, gout: torch.Tensor, image: torch.Tenso
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib():
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return kernels.bind("gaussian_raster", {"xr_raster_fwd": [p, p, i, i, i, p],
-                                            "xr_raster_bwd": [p, p, p, p, i, i, i, p]})
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_FWD = kernels.Kernel("gaussian_raster", "xr_raster_fwd", [_p, _p, _i, _i, _i, _p])
+_BWD = kernels.Kernel("gaussian_raster", "xr_raster_bwd", [_p, _p, _p, _p, _i, _i, _i, _p])
 
 
 def _check_cuda(t: torch.Tensor, shape, what: str) -> None:
@@ -291,11 +291,8 @@ def raster_fwd(tiled: torch.Tensor, ntx: int, nty: int) -> torch.Tensor:
     if n_tiles != ntx * nty:
         raise ValueError(f"{n_tiles} tiles do not make a {nty} x {ntx} grid")
     _check_cuda(tiled, (n_tiles, k, ROW), "tiled")
-    lib = _lib()
     out = torch.empty((nty * TILE, ntx * TILE, N_CH), dtype=torch.float32, device=tiled.device)
-    code = lib.xr_raster_fwd(tiled.data_ptr(), out.data_ptr(), n_tiles, k, ntx,
-                             torch.cuda.current_stream(tiled.device).cuda_stream)
-    kernels.check(lib, code, "raster_fwd")
+    _FWD(tiled.data_ptr(), out.data_ptr(), n_tiles, k, ntx, kernels.stream(tiled))
     LAUNCHES["raster_fwd"] += 1
     return out
 
@@ -312,11 +309,8 @@ def raster_bwd(tiled: torch.Tensor, gout: torch.Tensor, image: torch.Tensor, ntx
     _check_cuda(tiled, (n_tiles, k, ROW), "tiled")
     _check_cuda(gout, (nty * TILE, ntx * TILE, N_CH), "gout")
     _check_cuda(image, (nty * TILE, ntx * TILE, N_CH), "image")
-    lib = _lib()
     dg = torch.empty_like(tiled)
-    code = lib.xr_raster_bwd(tiled.data_ptr(), gout.data_ptr(), image.data_ptr(), dg.data_ptr(), n_tiles, k, ntx,
-                             torch.cuda.current_stream(tiled.device).cuda_stream)
-    kernels.check(lib, code, "raster_bwd")
+    _BWD(tiled.data_ptr(), gout.data_ptr(), image.data_ptr(), dg.data_ptr(), n_tiles, k, ntx, kernels.stream(tiled))
     LAUNCHES["raster_bwd"] += 1
     return dg
 
@@ -335,29 +329,57 @@ def _pack_tile_data(u, v, sigma, opacity, channels, tile_ids, tile_mask) -> torc
     return tiled
 
 
+class Binning:
+    """A tile binning held fixed over several renders: ``tile_ids`` [T, K]
+    int32 and ``tile_mask`` [T, K] bool from ``bin_gaussians_device``
+    (unpacks as that pair). The backward's K4 ordering of its live slots is
+    built at the first backward and kept for every later one."""
+
+    def __init__(self, tile_ids: torch.Tensor, tile_mask: torch.Tensor):
+        self.tile_ids, self.tile_mask = tile_ids, tile_mask
+        self._order: Optional[ScatterOrder] = None
+
+    def __iter__(self):
+        return iter((self.tile_ids, self.tile_mask))
+
+    def order(self, n_gauss: int) -> ScatterOrder:
+        """K4's ordering of the slots into ``n_gauss`` rows, masked slots
+        left out: their rows of K6's output are zeros."""
+        if self._order is None or self._order.num_rows != n_gauss:
+            ids = torch.where(self.tile_mask, self.tile_ids, torch.full_like(self.tile_ids, -1))
+            self._order = scatter_order(ids.reshape(-1), n_gauss)
+        return self._order
+
+
 class _Rasterize(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, u, v, sigma, opacity, channels, tile_ids, tile_mask, ntx: int, nty: int):
-        tiled = _pack_tile_data(u, v, sigma, opacity, channels, tile_ids, tile_mask)
+    def forward(ctx, u, v, sigma, opacity, channels, binning: Binning, ntx: int, nty: int):
+        tiled = _pack_tile_data(u, v, sigma, opacity, channels, binning.tile_ids, binning.tile_mask)
         image = raster_fwd(tiled, ntx, nty)
-        ctx.save_for_backward(tiled, tile_ids, image)
+        ctx.save_for_backward(tiled, image)
         ctx.grid = (ntx, nty)
         ctx.n_gauss = u.shape[0]
+        ctx.binning = binning
         return image
 
     @staticmethod
     def backward(ctx, gout):
-        tiled, tile_ids, image = ctx.saved_tensors
+        tiled, image = ctx.saved_tensors
         dg = raster_bwd(tiled, gout, image, *ctx.grid)  # masked slots are zero
-        acc = scatter_add(tile_ids.reshape(-1), dg.reshape(-1, ROW), ctx.n_gauss)  # [G, 16]
-        return acc[:, 0], acc[:, 1], acc[:, 2], acc[:, 3], acc[:, 5:5 + N_CH], None, None, None, None
+        acc = scatter_add_ordered(ctx.binning.order(ctx.n_gauss), dg.reshape(-1, ROW))  # [G, 16]
+        return acc[:, 0], acc[:, 1], acc[:, 2], acc[:, 3], acc[:, 5:5 + N_CH], None, None, None
 
 
-def rasterize(u, v, sigma, opacity, channels, tile_ids, tile_mask, ntx: int, nty: int) -> torch.Tensor:
+def rasterize_binned(u, v, sigma, opacity, channels, binning: Binning, ntx: int, nty: int) -> torch.Tensor:
     """Rasterize projected gaussians to [16 nty, 16 ntx, N_CH].
 
     u, v: [G] pixel centres; sigma: [G] screen-space std (px); opacity:
-    [G]; channels: [G, N_CH]; tile_ids [T, K] int32 / tile_mask [T, K]
-    bool from ``bin_gaussians_device``, held fixed (not differentiated).
+    [G]; channels: [G, N_CH]; ``binning`` held fixed (not differentiated).
     """
-    return _Rasterize.apply(u, v, sigma, opacity, channels, tile_ids, tile_mask, ntx, nty)
+    return _Rasterize.apply(u, v, sigma, opacity, channels, binning, ntx, nty)
+
+
+def rasterize(u, v, sigma, opacity, channels, tile_ids, tile_mask, ntx: int, nty: int) -> torch.Tensor:
+    """``rasterize_binned`` on a binning used once: tile_ids [T, K] int32 /
+    tile_mask [T, K] bool from ``bin_gaussians_device``."""
+    return rasterize_binned(u, v, sigma, opacity, channels, Binning(tile_ids, tile_mask), ntx, nty)

@@ -7,7 +7,8 @@ hash grid (tcnn HashGrid layout), table ``[L, T, F]``, x ``[..., 3]``.
   ``_trilerp_fwd_kernel``) and the XLA corner gather before it.
 * ``hashgrid_bwd`` replaces the position-gradient kernel (K2,
   ``_trilerp_bwd_kernel``) and the table-gradient kernel (K3,
-  ``_dtable_kernel``) in one re-gathering pass.
+  ``_dtable_kernel``): dx summed over a point's levels with warp shuffles
+  (the same bits on every run), dtable with float2 and float4 atomics.
 
 The kernels are in ``kernels/hashgrid.cu``, whose header says what bounds
 them on the card and what the design does about it. Each wrapper chooses by
@@ -20,8 +21,9 @@ The position gradient follows the TPU kernel, not autodiff of the reference
 never zeroed outside [0,1]^3.
 
 ``LAUNCHES`` counts kernel launches: ``hashgrid_fwd`` per forward launch,
-``hashgrid_bwd_dx`` / ``hashgrid_bwd_dtable`` per backward launch that
-computed dx / dtable.
+``hashgrid_bwd_dx`` / ``hashgrid_bwd_dtable`` per backward call that
+computed dx / dtable, ``hashgrid_bwd_dx_dtable`` per call that computed
+both (mapping's).
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import torch
 from .. import kernels
 from .encodings import CORNER_OFFSETS, HashGridSpec, flat_rows, grid_corners
 
-LAUNCHES: Dict[str, int] = {"hashgrid_fwd": 0, "hashgrid_bwd_dx": 0, "hashgrid_bwd_dtable": 0}
+LAUNCHES: Dict[str, int] = {"hashgrid_fwd": 0, "hashgrid_bwd_dx": 0, "hashgrid_bwd_dtable": 0,
+                            "hashgrid_bwd_dx_dtable": 0}
 
 
 def reset_launches() -> None:
@@ -89,10 +92,9 @@ def hashgrid_bwd_torch(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, sp
 _LEVEL_ARGS: Dict[HashGridSpec, Tuple[ctypes.Array, ctypes.Array]] = {}
 
 
-def _lib():
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return kernels.bind("hashgrid", {"xr_hashgrid_fwd": [p, p, p, ll, i, i, p, p, p],
-                                     "xr_hashgrid_bwd": [p, p, p, p, p, ll, i, i, p, p, p]})
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD = kernels.Kernel("hashgrid", "xr_hashgrid_fwd", [_p, _p, _p, _ll, _i, _i, _p, _p, _p])
+_BWD = kernels.Kernel("hashgrid", "xr_hashgrid_bwd", [_p, _p, _p, _p, _p, _ll, _i, _i, _p, _p, _p])
 
 
 def level_args(spec: HashGridSpec):
@@ -128,13 +130,10 @@ def hashgrid_fwd(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec) -> to
         return hashgrid_fwd_torch(table, x, spec)
     _check_cuda_inputs(table, x, spec)
     table = float2_aligned(table)
-    lib = _lib()
     res, dense = level_args(spec)
     out = torch.empty((x.shape[0], spec.out_dim), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.xr_hashgrid_fwd(table.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], spec.n_levels,
-                               spec.log2_table_size, res, dense, stream)
-    kernels.check(lib, code, "hashgrid_fwd")
+    _FWD(table.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], spec.n_levels, spec.log2_table_size, res, dense,
+         kernels.stream(x))
     LAUNCHES["hashgrid_fwd"] += 1
     return out
 
@@ -144,7 +143,8 @@ def hashgrid_bwd(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, spec: Ha
                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(dtable | None, dx | None) for upstream g [N, L*2]: kernel on CUDA,
     twin on CPU. A dtable that is not needed (tracking: the table is
-    constant) costs neither its atomics nor its memset."""
+    constant) costs neither its atomics nor its memset; dx is written
+    whole, with no fill."""
     if kernels.on_cpu(x, "hash-grid encoding"):
         return hashgrid_bwd_torch(table, x, g, spec, need_dtable, need_dx)
     _check_cuda_inputs(table, x, spec)
@@ -153,17 +153,15 @@ def hashgrid_bwd(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, spec: Ha
     table, g = float2_aligned(table), float2_aligned(g.contiguous())
     if not (need_dtable or need_dx):
         return None, None
-    lib = _lib()
     res, dense = level_args(spec)
     dtable = torch.zeros_like(table) if need_dtable else None
-    dx = torch.zeros((x.shape[0], 3), dtype=torch.float32, device=x.device) if need_dx else None
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.xr_hashgrid_bwd(table.data_ptr(), x.data_ptr(), g.data_ptr(),
-                               dx.data_ptr() if need_dx else None, dtable.data_ptr() if need_dtable else None,
-                               x.shape[0], spec.n_levels, spec.log2_table_size, res, dense, stream)
-    kernels.check(lib, code, "hashgrid_bwd")
+    dx = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device) if need_dx else None
+    _BWD(table.data_ptr(), x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
+         dtable.data_ptr() if need_dtable else None, x.shape[0], spec.n_levels, spec.log2_table_size, res, dense,
+         kernels.stream(x))
     LAUNCHES["hashgrid_bwd_dx"] += int(need_dx)
     LAUNCHES["hashgrid_bwd_dtable"] += int(need_dtable)
+    LAUNCHES["hashgrid_bwd_dx_dtable"] += int(need_dx and need_dtable)
     return dtable, dx
 
 

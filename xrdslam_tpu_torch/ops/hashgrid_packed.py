@@ -17,14 +17,17 @@ The gather and its backward are one ``torch.autograd.Function`` with the
 reference's rule (``_gl_fwd`` / ``_gl_bwd``): the backward reuses the
 gathered rows (and the row ids and fractions), its dx is zeroed outside the open box (0, 1)^3 on the
 unclipped x (unlike K2 and K9), and each level's table gradient is
-``zeros.at[rid].add(w g)`` through ``ops.scatter.scatter_add`` (K4 on the
-card). The reference's ``_widened_segsum`` / ``_scatter_k`` (a TPU
-segment-count trick with the same sum) and its ``_good_rows`` padding
+``zeros.at[rid].add(w g)``: one ``ops.scatter.scatter_add`` (K4 on the
+card) sums every level at once into the levels' tables stacked row-wise,
+each level's row ids offset by the rows before it (the same sums, in the
+same order, as one scatter per level). The reference's
+``_widened_segsum`` / ``_scatter_k`` (a TPU segment-count trick with the
+same sum) and its ``_good_rows`` padding
 (fast gather sizes on the TPU; no padded row is ever gathered) are not
 ported.
 
-Cell arithmetic, weights and row ids run for all levels at once; only the
-per-level gathers and scatters loop.
+Cell arithmetic, weights, row ids and the table gradients run for all
+levels at once; only the per-level gathers loop.
 """
 from __future__ import annotations
 
@@ -95,6 +98,17 @@ def _corner_weights(frac: torch.Tensor) -> torch.Tensor:
     return (wx[..., :, None, None] * wy[..., None, :, None] * wz[..., None, None, :]).flatten(-3)
 
 
+def stacked_rows(rid: torch.Tensor, n_rows: Sequence[int]) -> Tuple[torch.Tensor, List[int]]:
+    """Row ids [N, L] into each level's table -> (ids [N*L] int32 into the
+    tables stacked row-wise, point-major; the first row of each level and
+    the total, L + 1 offsets)."""
+    offsets = [0]
+    for rows in n_rows:
+        offsets.append(offsets[-1] + rows)
+    first = torch.tensor(offsets[:-1], dtype=rid.dtype, device=rid.device)
+    return (rid + first).to(torch.int32).reshape(-1), offsets
+
+
 class _GatherLerp(torch.autograd.Function):
     """One patch row per level, trilinearly weighted; the reference's
     custom backward (see the module docstring)."""
@@ -121,11 +135,12 @@ class _GatherLerp(torch.autograd.Function):
         gl = g.reshape(n, L, f)
         d_packed: List[Optional[torch.Tensor]] = [None] * L
         if any(ctx.needs_input_grad[2:]):
-            vals = (_corner_weights(frac)[..., None] * gl[:, :, None, :]).reshape(n, L, 8 * f)
-            rid32 = rid.to(torch.int32)
+            vals = (_corner_weights(frac)[..., None] * gl[:, :, None, :]).reshape(n * L, 8 * f)
+            ids, offsets = stacked_rows(rid, ctx.n_rows)
+            stacked = scatter_add(ids, vals, offsets[-1])
             for l in range(L):
                 if ctx.needs_input_grad[2 + l]:
-                    d_packed[l] = scatter_add(rid32[:, l].contiguous(), vals[:, l].contiguous(), ctx.n_rows[l])
+                    d_packed[l] = stacked[offsets[l]:offsets[l + 1]]
         dx = None
         if ctx.needs_input_grad[1]:
             # g . f per corner [N, L, 2, 2, 2], then the derivative of the

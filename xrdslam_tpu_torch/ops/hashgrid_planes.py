@@ -84,10 +84,9 @@ def hashgrid_planes_bwd_torch(planes: torch.Tensor, x: torch.Tensor, g: torch.Te
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib():
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return kernels.bind("hashgrid", {"xr_hashgrid_planes_fwd": [p, p, p, ll, i, i, p, p, p],
-                                     "xr_hashgrid_planes_bwd": [p, p, p, p, p, ll, i, i, p, p, p]})
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD = kernels.Kernel("hashgrid", "xr_hashgrid_planes_fwd", [_p, _p, _p, _ll, _i, _i, _p, _p, _p])
+_BWD = kernels.Kernel("hashgrid", "xr_hashgrid_planes_bwd", [_p, _p, _p, _p, _p, _ll, _i, _i, _p, _p, _p])
 
 
 def _check_cuda_inputs(planes: torch.Tensor, x: torch.Tensor, spec: HashGridSpec) -> None:
@@ -108,13 +107,10 @@ def hashgrid_planes_fwd(planes: torch.Tensor, x: torch.Tensor, spec: HashGridSpe
     if kernels.on_cpu(x, "plane-layout hash-grid encoding"):
         return hashgrid_planes_fwd_torch(planes, x, spec)
     _check_cuda_inputs(planes, x, spec)
-    lib = _lib()
     res, dense = level_args(spec)
     out = torch.empty((x.shape[0], spec.out_dim), dtype=torch.float32, device=x.device)
-    code = lib.xr_hashgrid_planes_fwd(planes.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], spec.n_levels,
-                                      spec.log2_table_size, res, dense,
-                                      torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(lib, code, "hashgrid_planes_fwd")
+    _FWD(planes.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], spec.n_levels, spec.log2_table_size, res,
+         dense, kernels.stream(x))
     LAUNCHES["hashgrid_planes_fwd"] += 1
     return out
 
@@ -132,16 +128,12 @@ def hashgrid_planes_bwd(planes: torch.Tensor, x: torch.Tensor, g: torch.Tensor, 
     if not (need_dplanes or need_dx):
         return None, None
     g = float2_aligned(g.contiguous())
-    lib = _lib()
     res, dense = level_args(spec)
     dplanes = torch.zeros_like(planes) if need_dplanes else None
-    dx = torch.zeros((x.shape[0], 3), dtype=torch.float32, device=x.device) if need_dx else None
-    code = lib.xr_hashgrid_planes_bwd(planes.data_ptr(), x.data_ptr(), g.data_ptr(),
-                                      dx.data_ptr() if need_dx else None,
-                                      dplanes.data_ptr() if need_dplanes else None,
-                                      x.shape[0], spec.n_levels, spec.log2_table_size, res, dense,
-                                      torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(lib, code, "hashgrid_planes_bwd")
+    dx = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device) if need_dx else None
+    _BWD(planes.data_ptr(), x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
+         dplanes.data_ptr() if need_dplanes else None, x.shape[0], spec.n_levels, spec.log2_table_size, res, dense,
+         kernels.stream(x))
     LAUNCHES["hashgrid_planes_bwd"] += 1
     return dplanes, dx
 

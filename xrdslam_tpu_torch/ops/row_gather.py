@@ -25,6 +25,8 @@ from .. import kernels
 from .scatter import scatter_add
 
 LAUNCHES: Dict[str, int] = {"row_gather": 0}
+_p, _ll = ctypes.c_void_p, ctypes.c_longlong
+_GATHER = kernels.Kernel("row_gather", "xr_row_gather", [_p, _p, _p, _ll, _ll, _ll, _p])
 
 
 def reset_launches() -> None:
@@ -52,13 +54,9 @@ def row_gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     table, idx = table.contiguous(), idx.contiguous()
     if table.data_ptr() % 16 != 0:
         raise ValueError("row_gather's table must be 16-byte aligned: the kernel copies 16-byte words")
-    p = ctypes.c_void_p
-    ll = ctypes.c_longlong
-    lib = kernels.bind("row_gather", {"xr_row_gather": [p, p, p, ll, ll, ll, p]})
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
-    code = lib.xr_row_gather(table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], table.shape[1],
-                             table.shape[0], torch.cuda.current_stream(table.device).cuda_stream)
-    kernels.check(lib, code, "row_gather")
+    _GATHER(table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], table.shape[1], table.shape[0],
+            kernels.stream(table))
     LAUNCHES["row_gather"] += 1
     return out
 

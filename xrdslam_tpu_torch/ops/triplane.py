@@ -13,10 +13,12 @@ SDF MLP's first layer reads them in that order).
   only from the backward rule.
 * Backward (the reference's ``_tp_bwd``): the planes' gradient is the
   moment trick, one scattered row of [g, fu g, fv g, fu fv g] per point into
-  its base cell (``ops.scatter.scatter_add``, K4 on the card, one scatter
-  per plane and scale) followed by the exact 2x2 deconvolution of the
-  moment field; dx comes from the saved corners, with NO mask outside
-  [0,1]^3.
+  its base cell, followed by the exact 2x2 deconvolution of the moment
+  field. One ``ops.scatter.scatter_add`` (K4 on the card) splats every
+  plane of every scale at once into their cells stacked row-wise (all
+  scales have 4C = 32 moments a cell in the registry; scales of another
+  width get a scatter each); dx comes from the saved corners, with NO mask
+  outside [0,1]^3.
 
 The reference's ``_good_rows`` padding (fast gather sizes on the TPU) is not
 ported: no padded row is ever gathered.
@@ -79,13 +81,35 @@ def triplane_pack(tables: Dict[str, torch.Tensor], spec: TriplaneSpec) -> Dict[s
             for s in range(len(spec.resolutions))}
 
 
-def _splat_moment(rows: torch.Tensor, fu: torch.Tensor, fv: torch.Tensor, g: torch.Tensor, R: int) -> torch.Tensor:
-    """The exact bilinear splat of g [N, C] into an [R, R, C] plane: moments
-    scattered into each point's base cell ``rows``, then the 2x2
-    deconvolution (the corner weights are bilinear in (fu, fv))."""
-    C = g.shape[-1]
-    m = torch.cat([g, g * fu[:, None], g * fv[:, None], g * (fu * fv)[:, None]], -1)
-    M = scatter_add(rows, m.contiguous(), R * R).reshape(R, R, 4, C)
+def _splat(cells: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]]) -> List[torch.Tensor]:
+    """The moment fields [R*R, 4C] of each plane (rows [N] int64, fu [N], fv
+    [N], g [N, C], R): every point's row [g, fu g, fv g, fu fv g] added into
+    its base cell. One K4 launch per moment width over the planes stacked
+    row-wise."""
+    out: List[Optional[torch.Tensor]] = [None] * len(cells)
+    for width in sorted({g.shape[1] for *_, g, _ in cells}):
+        group = [i for i, (*_, g, _) in enumerate(cells) if g.shape[1] == width]
+        n = cells[group[0]][0].shape[0]
+        moments = torch.empty((len(group) * n, 4 * width), dtype=cells[group[0]][3].dtype,
+                              device=cells[group[0]][3].device)
+        rows, first = [], [0]
+        for k, i in enumerate(group):
+            r, fu, fv, g, R = cells[i]
+            torch.cat([g, g * fu[:, None], g * fv[:, None], g * (fu * fv)[:, None]], -1,
+                      out=moments[k * n:(k + 1) * n])
+            rows.append(r + first[-1])
+            first.append(first[-1] + R * R)
+        M = scatter_add(torch.cat(rows).to(torch.int32), moments, first[-1])
+        for k, i in enumerate(group):
+            out[i] = M[first[k]:first[k + 1]]
+    return out
+
+
+def _deconvolve(M: torch.Tensor, R: int) -> torch.Tensor:
+    """The exact bilinear splat into an [R, R, C] plane from its moment
+    field M [R*R, 4C]: the 2x2 deconvolution (the corner weights are
+    bilinear in (fu, fv))."""
+    M = M.reshape(R, R, 4, -1)
     m00, m10, m01, m11 = M[:, :, 0], M[:, :, 1], M[:, :, 2], M[:, :, 3]
     d = m00 - m10 - m01 + m11
     d = d + F.pad((m10 - m11)[:-1], (0, 0, 0, 0, 1, 0))
@@ -116,19 +140,17 @@ class _EncodeCore(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         spec: TriplaneSpec = ctx.spec
         x, *corners = ctx.saved_tensors
-        dtables: List[Optional[torch.Tensor]] = []
         dx = torch.zeros_like(x) if ctx.needs_input_grad[1] else None
+        cells = []  # (rows, fu, fv, g, R) of each plane to splat
         off = ci = 0
         for s, (R, C) in enumerate(zip(spec.resolutions, spec.n_features)):
             u0, fr = _cells(x, R)
-            dplanes = []
             for a, b in PLANES:
                 gk = g[:, off:off + C]
                 off += C
                 fu, fv = fr[:, a], fr[:, b]
                 if ctx.needs_input_grad[3 + s]:
-                    rows = (u0[:, a] * R + u0[:, b]).to(torch.int32)
-                    dplanes.append(_splat_moment(rows, fu, fv, gk, R))
+                    cells.append((u0[:, a] * R + u0[:, b], fu, fv, gk, R))
                 if dx is not None:
                     c = corners[ci]
                     f00, f01, f10, f11 = c[:, :C], c[:, C:2 * C], c[:, 2 * C:3 * C], c[:, 3 * C:]
@@ -137,7 +159,11 @@ class _EncodeCore(torch.autograd.Function):
                     dx[:, a] += torch.sum(gk * dfu, -1) * (R - 1.0)
                     dx[:, b] += torch.sum(gk * dfv, -1) * (R - 1.0)
                 ci += 1
-            dtables.append(torch.stack(dplanes) if dplanes else None)
+        splats = iter(_splat(cells))
+        dtables: List[Optional[torch.Tensor]] = []
+        for s, R in enumerate(spec.resolutions):
+            dtables.append(torch.stack([_deconvolve(next(splats), R) for _ in PLANES])
+                           if ctx.needs_input_grad[3 + s] else None)
         return (None, dx, None, *dtables)
 
 
