@@ -13,8 +13,11 @@
    the hash-grid kernels K1-K3 at Co-SLAM's mapping shapes (N = 176,128
    points, some outside [0,1]^3) and the plane-layout hash-grid kernels
    K8/K9 at the same shapes (nothing in the repository calls them: they
-   are held at function level); the rasterizer K5/K6 and the scatter-add
-   K4 on gaussians grown from an office frame at 600x340 and binned at its
+   are held at function level); the forwards K1 and K8 also at tracking's
+   N = 44,032 and on office surface samples at both N, each held to the
+   bits of the former, point-major forward (``POINT_MAJOR_FWD_CU``) and
+   to the same bits in two launches, and timed beside it; the rasterizer
+   K5/K6 and the scatter-add K4 on gaussians grown from an office frame at 600x340 and binned at its
    pose (836 tiles, K = 256, 131,072 rows), with a seeded random upstream
    gradient, and K5/K6 again binned with K = 512 (the SplaTAM gate's);
    K5/K6 also by device time. The row
@@ -36,7 +39,9 @@
    beyond it (CUDA events minus device time).
 4. Runs, through the port's runner: Co-SLAM on the synthetic office at
    600x340 with the benchmark settings, twice (gated): with the exact hash
-   grid (K1-K3) and at the registry's default, the packed hash (K4 as its
+   grid (K1-K3; K1's launches counted by N, and K1 held to the
+   point-major forward's bits and timed beside it on the run's own inputs
+   at each N) and at the registry's default, the packed hash (K4 as its
    tables' gradient, launches equal to the schedule's); Co-SLAM at the
    accuracy protocol (``bench_accuracy.py``'s configuration: the
    tri-plane, 200 frames; gated on ATE, K4 launches equal to the
@@ -90,6 +95,16 @@ level or plane (``[lever]`` lines); then rebuilds the hash-grid backward
 with one change at a time (``HASHGRID_VARIANTS``) and times dx, dtable and
 both (``[variant]`` lines, no result line).
 
+    python3 chip_smoke.py --hashgrid-fwd-variants
+
+times the hash-grid forward (K1 and K8) as shipped beside the point-major forward
+and the shipped design with one change at a time (G = 1, 2, 4, 16 levels a
+thread; no x-pair loads; no output staging; loads only, the floor of its
+access pattern; 4x the points per block; the largest L1; the hashed
+levels' pair loads not kept in L1) at random and office surface points, at
+N = 176,128 and 44,032, by CUDA events and device time, with each one's
+ptxas registers (``[variant]`` lines, no result line).
+
     python3 chip_smoke.py --determinism-probe
 
 runs each main path for a few frames under
@@ -108,6 +123,7 @@ the runs of each kind were identical.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -387,6 +403,9 @@ def atomic_variant(name: str, lib, idx, g, rows: int, device) -> None:
           f"max err / max |twin| {err:.1e}, two launches {'the same' if torch.equal(a, b) else 'differ'}", flush=True)
 
 
+VARIANT_PTXAS = {}  # variant name -> its ptxas report
+
+
 def build_variants(source: str, variants, out_dir) -> dict:
     """``kernels/<source>.cu`` with each variant's (text, replacement) edits,
     or a variant's whole text where it is a string, compiled in parallel
@@ -415,6 +434,7 @@ def build_variants(source: str, variants, out_dir) -> dict:
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
+        VARIANT_PTXAS[name] = err
         lib = libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
         lib.xr_cuda_error_string.argtypes, lib.xr_cuda_error_string.restype = [ctypes.c_int], ctypes.c_char_p
     return libs
@@ -503,6 +523,384 @@ def scatter_variants(spec, device) -> None:
     hashgrid_variants(spec, device)
 
 
+# The former hash-grid forward on both layouts, point-major (one thread per
+# (point, level), levels fastest), kept as source text: the default run
+# holds the shipped forward to its bits and times both in one call;
+# --hashgrid-fwd-variants times it beside the variants. Not part of the
+# package.
+POINT_MAJOR_FWD_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+namespace {
+constexpr int kMaxLevels = 32;
+constexpr int kThreads = 256;
+struct Levels {
+  int n_levels;
+  int log2_t;
+  int res[kMaxLevels];
+  int dense[kMaxLevels];
+};
+__device__ __forceinline__ void cell_axis(float x, int res, float* frac, uint32_t* i0) {
+  const float p = fminf(fmaxf(x, 0.0f), 1.0f) * (float)res;
+  int i = (int)floorf(p);
+  i = min(max(i, 0), res - 1);
+  *frac = p - (float)i;
+  *i0 = (uint32_t)i;
+}
+__device__ __forceinline__ uint32_t corner_row(uint32_t gx, uint32_t gy, uint32_t gz, uint32_t res,
+                                               bool dense, uint32_t mask) {
+  if (dense) {
+    const uint32_t s = res + 1u;
+    return gx + s * (gy + s * gz);
+  }
+  return ((gx * 1u) ^ (gy * 2654435761u) ^ (gz * 805459861u)) & mask;
+}
+template <bool kPlanes>
+__device__ __forceinline__ float2 load_entry(const float* __restrict__ level, uint32_t e, uint32_t t) {
+  if (kPlanes) return make_float2(__ldg(level + e), __ldg(level + t + e));
+  return __ldg(reinterpret_cast<const float2*>(level) + e);
+}
+template <bool kPlanes>
+__global__ void __launch_bounds__(kThreads)
+hashgrid_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
+                    float* __restrict__ out, int64_t n, Levels lv) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n * lv.n_levels) return;
+  const int64_t p = t / lv.n_levels;
+  const int l = (int)(t - p * lv.n_levels);
+  const int res = lv.res[l];
+  const bool dense = lv.dense[l] != 0;
+  const uint32_t mask = (1u << lv.log2_t) - 1u;
+  float fx, fy, fz;
+  uint32_t ix, iy, iz;
+  cell_axis(__ldg(x + 3 * p + 0), res, &fx, &ix);
+  cell_axis(__ldg(x + 3 * p + 1), res, &fy, &iy);
+  cell_axis(__ldg(x + 3 * p + 2), res, &fz, &iz);
+  const uint32_t tsize = 1u << lv.log2_t;
+  const float* level = table + ((int64_t)l << (lv.log2_t + 1));
+  float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int cx = c >> 2, cy = (c >> 1) & 1, cz = c & 1;
+    const uint32_t e = corner_row(ix + cx, iy + cy, iz + cz, (uint32_t)res, dense, mask);
+    const float w = (cx ? fx : 1.0f - fx) * (cy ? fy : 1.0f - fy) * (cz ? fz : 1.0f - fz);
+    const float2 f = load_entry<kPlanes>(level, e, tsize);
+    a0 += w * f.x;
+    a1 += w * f.y;
+  }
+  reinterpret_cast<float2*>(out)[t] = make_float2(a0, a1);
+}
+template <bool kPlanes>
+int launch_fwd(const float* table, const float* x, float* out, long long n, int n_levels, int log2_t,
+               const int* res, const int* dense, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || log2_t < 7 || log2_t > 30) return (int)cudaErrorInvalidValue;
+  Levels lv;
+  lv.n_levels = n_levels;
+  lv.log2_t = log2_t;
+  for (int i = 0; i < n_levels; ++i) {
+    lv.res[i] = res[i];
+    lv.dense[i] = dense[i];
+  }
+  if (n == 0) return 0;
+  const unsigned int blocks = (unsigned int)((n * n_levels + kThreads - 1) / kThreads);
+  hashgrid_fwd_kernel<kPlanes><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(table, x, out, n, lv);
+  return (int)cudaGetLastError();
+}
+}  // namespace
+extern "C" int xr_hashgrid_fwd(const float* table, const float* x, float* out, long long n, int n_levels,
+                               int log2_t, const int* res, const int* dense, void* stream) {
+  return launch_fwd<false>(table, x, out, n, n_levels, log2_t, res, dense, stream);
+}
+extern "C" int xr_hashgrid_planes_fwd(const float* planes, const float* x, float* out, long long n, int n_levels,
+                                      int log2_t, const int* res, const int* dense, void* stream) {
+  return launch_fwd<true>(planes, x, out, n, n_levels, log2_t, res, dense, stream);
+}
+extern "C" const char* xr_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+"""
+
+
+def bind_fwd(lib):
+    import ctypes
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.xr_hashgrid_fwd, lib.xr_hashgrid_planes_fwd):
+        fn.argtypes = [p, p, p, ll, i, i, p, p, p]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def point_major_fwd_lib():
+    """The point-major forward (``POINT_MAJOR_FWD_CU``), built and bound once."""
+    from xrdslam_tpu_torch import kernels
+
+    return bind_fwd(build_variants("hashgrid", {"pm": POINT_MAJOR_FWD_CU}, kernels.BUILD_DIR / "variants")["pm"])
+
+
+def fwd_call(lib, planes: bool, tab, x, spec, out):
+    """One launch of ``lib``'s forward (the shipped library, the point-major
+    one or a variant's) on [L, T, 2] or, with ``planes``, [L, 2, T/128, 128] into
+    ``out``; returns ``out``."""
+    from xrdslam_tpu_torch import kernels
+    from xrdslam_tpu_torch.ops import hashgrid_fast as hf
+
+    res, dense = hf.level_args(spec)
+    fn = lib.xr_hashgrid_planes_fwd if planes else lib.xr_hashgrid_fwd
+    kernels.check(lib, fn(tab.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], spec.n_levels,
+                          spec.log2_table_size, res, dense, kernels.stream(x)), "hash-grid forward")
+    return out
+
+
+def fwd_shapes(x_random, device):
+    """The forward's four shapes: ``x_random`` (N_MAP uniform random
+    points, some outside the box) and office surface samples
+    (``office_surface_points``, ray-major, as the main path orders them),
+    each at mapping's N = 176,128 and at tracking's first 44,032 (1,024
+    rays of the surface samples)."""
+    surface = office_surface_points(device)
+    return {"random": x_random, "random@track": x_random[:N_TRACK].contiguous(),
+            "surface": surface, "surface@track": surface[:N_TRACK].contiguous()}
+
+
+def fwd_bound(spec, tab, x, out):
+    """The forward's bound: the table, x and out moved once; per (point,
+    level) 12 float operations for the cell and 6 per corner (2 for its
+    weight, 2 multiply-adds)."""
+    return bound(nbytes(tab, x, out), x.shape[0] * spec.n_levels * (12 + 8 * 6))
+
+
+def check_fwd(planes: bool, tab, shapes, spec):
+    """The shipped forward (K1, or K8 with ``planes``) at each of ``shapes``:
+    against its twin (FWD_ATOL), the same bits in two launches and as the
+    point-major forward; timed by CUDA events beside the twin (twin,
+    kernel, kernel, twin) and by device time, the point-major forward the
+    same in this call, beside the bound. Returns {shape: its numbers}."""
+    import torch
+
+    from xrdslam_tpu_torch.ops import hashgrid_fast as hf
+    from xrdslam_tpu_torch.ops import hashgrid_planes as hp
+
+    name = "K8 planes fwd" if planes else "K1 fwd"
+    kern = hp.hashgrid_planes_fwd if planes else hf.hashgrid_fwd
+    twin = hp.hashgrid_planes_fwd_torch if planes else hf.hashgrid_fwd_torch
+    pm = point_major_fwd_lib()
+    found = {}
+    for shape, x in shapes.items():
+        out = [kern(tab, x, spec) for _ in range(2)]
+        ref = fwd_call(pm, planes, tab, x, spec, torch.empty_like(out[0]))
+        same_bits(f"{name} [{shape}]", out)
+        same_bits(f"{name} [{shape}] and the point-major forward", [out[0], ref])
+        want = twin(tab, x, spec)
+        err = float((out[0] - want).abs().max())
+        check(f"{name} [{shape}]", err, FWD_ATOL, float(want.abs().max()))
+        run = lambda: kern(tab, x, spec)  # noqa: E731
+        run_pm = lambda: fwd_call(pm, planes, tab, x, spec, ref)  # noqa: E731
+        k_ms, t_ms = interleaved(run, lambda: twin(tab, x, spec))
+        p_ms = min(cuda_ms(run_pm), cuda_ms(run_pm))
+        dev, p_dev = device_ms(run), device_ms(run_pm)
+        b_ms, by = fwd_bound(spec, tab, x, out[0])
+        print(f"[time] {name} [{shape}] N={x.shape[0]}: kernel {k_ms:.4f} ms, device {dev:.4f} ms; the "
+              f"point-major forward {p_ms:.4f} ms, device {p_dev:.4f} ms (device time {dev / p_dev:.3f} of it); "
+              f"twin {t_ms:.4f} ms")
+        print(f"[bound] {name} [{shape}]: {b_ms:.4f} ms ({by})")
+        found[shape] = {"n": x.shape[0], "max_abs_err": err, "ms": k_ms, "device_ms": dev, "point_major_ms": p_ms,
+                        "point_major_device_ms": p_dev, "plain_ms": t_ms, "bound_ms": b_ms, "bound_by": by}
+    return found
+
+
+def fwd_record(found):
+    """A forward's kernels-line numbers: at the random mapping shape, as in
+    earlier PRs, with every shape's numbers beside them."""
+    r = found["random"]
+    return {"max_abs_err": max(f["max_abs_err"] for f in found.values()), "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "point_major_ms": r["point_major_ms"], "point_major_device_ms": r["point_major_device_ms"],
+            "shapes": {k: {m: f[m] for m in ("n", "device_ms", "point_major_device_ms", "bound_ms")}
+                       for k, f in found.items()}}
+
+
+FWD_G_LINE = r"constexpr int kFwdLevels = kPlanes \? (\d+) : (\d+);"
+
+
+def fwd_g_variants(gs):
+    """``hashgrid.cu`` rebuilt with G levels a thread on both layouts, for
+    each G of ``gs`` (name -> edits), and the shipped (K1's G, K8's G)."""
+    import re
+
+    from xrdslam_tpu_torch import kernels
+
+    m = re.search(FWD_G_LINE, (kernels.SOURCE_DIR / "hashgrid.cu").read_text())
+    return ({f"G{g}": [(m.group(0), f"constexpr int kFwdLevels = {g};")] for g in gs},
+            (int(m.group(2)), int(m.group(1))))
+
+
+def fwd_by_n(by_n, inputs):
+    """K1 at each N of the exact-hash run (``by_n``: N -> the wrapper's
+    launch count), on the first inputs the run gave it at that N
+    (``inputs``: N -> table, x, spec): the same bits as the point-major
+    forward; device time of it, of the point-major forward and of K1 at
+    the other G, and each one's time summed over the run's launches, the
+    measure G is chosen by. Returns N -> numbers."""
+    import torch
+
+    from xrdslam_tpu_torch import kernels
+    from xrdslam_tpu_torch.ops import hashgrid_fast as hf
+
+    gs, (k1_g, _) = fwd_g_variants((1, 2, 4))
+    gs.pop(f"G{k1_g}")
+    g_libs = {g: bind_fwd(lib) for g, lib in build_variants("hashgrid", gs, kernels.BUILD_DIR / "variants").items()}
+    pm, found = point_major_fwd_lib(), {}
+    total = {f"shipped (G{k1_g})": 0.0, "point-major": 0.0, **{g: 0.0 for g in gs}}
+    for n, launches in by_n.items():
+        tab, x, spec = inputs[int(n)]
+        out = hf.hashgrid_fwd(tab, x, spec)
+        ref = fwd_call(pm, False, tab, x, spec, torch.empty_like(out))
+        same_bits(f"K1 fwd on the exact run's inputs at N={n} and the point-major forward", [out, ref])
+        dev = device_ms(lambda: hf.hashgrid_fwd(tab, x, spec))
+        p_dev = device_ms(lambda: fwd_call(pm, False, tab, x, spec, ref))
+        g_dev = {g: device_ms(lambda lib=lib: fwd_call(lib, False, tab, x, spec, ref)) for g, lib in g_libs.items()}
+        print(f"[time] K1 fwd on the exact run's inputs N={n} ({launches} launches): device {dev:.4f} ms; "
+              f"the point-major forward {p_dev:.4f} ms ({dev / p_dev:.3f} of it); "
+              + ", ".join(f"{g} {t:.4f} ms" for g, t in g_dev.items()))
+        for name, t in ((f"shipped (G{k1_g})", dev), ("point-major", p_dev), *g_dev.items()):
+            total[name] += launches * t
+        found[n] = {"launches": launches, "device_ms": dev, "point_major_device_ms": p_dev,
+                    **{f"{g}_device_ms": t for g, t in g_dev.items()}}
+    print("[time] K1 fwd device time summed over the exact run's launches: "
+          + ", ".join(f"{name} {t:.3f} ms" for name, t in total.items()))
+    return found
+
+
+# --hashgrid-fwd-variants: the forward rebuilt with one change at a time
+FWD_WEIGHT = "const float w = (cx ? fx[j] : 1.0f - fx[j]) * (cy ? fy[j] : 1.0f - fy[j]) * (cz ? fz[j] : 1.0f - fz[j]);"
+FWD_LAUNCH = "  hashgrid_fwd_kernel<kPlanes><<<(unsigned int)"
+# the pair load of [L, T, 2] on a hashed level not kept in L1 (PTX's
+# L1::no_allocate), a dense level's as shipped
+FWD_HASHED_NO_L1 = r"""
+__device__ __forceinline__ float4 ldg4_level(const float4* p, bool dense) {
+  if (dense) return __ldg(p);
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0,%1,%2,%3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+template <bool kPlanes>
+__device__ __forceinline__ void load_pair("""
+FWD_VARIANTS = {
+    # e0 and e1 each from a load of its own
+    "no_pairs": [("float2* f0, float2* f1) {\n",
+                  "float2* f0, float2* f1) {\n  *f0 = load_entry<kPlanes>(level, e0, t);\n"
+                  "  *f1 = load_entry<kPlanes>(level, e1, t);\n  return;\n")],
+    # each output written straight to out, 8 bytes at a time
+    "no_staging": [("reinterpret_cast<float2*>(os + q * row)[l] = make_float2(a0, a1);",
+                    "reinterpret_cast<float2*>(out)[(p0 + q) * nl + l] = make_float2(a0, a1);"),
+                   ("  __syncthreads();\n  // the block's [np, 2L] outputs",
+                    "  return;\n  // the block's [np, 2L] outputs")],
+    # the index arithmetic and the loads; no weights, the entries only added
+    "loads_only": [(FWD_WEIGHT, "const float w = 1.0f;")],
+    # 4x the points per block (more of a ray's samples in one block's L1)
+    "points_x4": [("  const int chunks = groups >= kThreads / 32 ? 1 : (kThreads / 32) / groups;",
+                   "  const int chunks = 4 * (groups >= kThreads / 32 ? 1 : (kThreads / 32) / groups);")],
+    # the largest L1 the carveout allows (the least shared memory)
+    "max_l1": [(FWD_LAUNCH, "  cudaFuncSetAttribute(hashgrid_fwd_kernel<kPlanes>, "
+                            "cudaFuncAttributePreferredSharedMemoryCarveout, 0);\n" + FWD_LAUNCH)],
+    "hashed_no_l1": [("template <bool kPlanes>\n__device__ __forceinline__ void load_pair(", FWD_HASHED_NO_L1),
+                     ("float2* f0, float2* f1) {", "float2* f0, float2* f1, bool dense) {"),
+                     ("tsize, &f[j][k], &f[j][k + 4]);", "tsize, &f[j][k], &f[j][k + 4], dense);"),
+                     ("__ldg(reinterpret_cast<const float4*>(level) + (e0 >> 1))",
+                      "ldg4_level(reinterpret_cast<const float4*>(level) + (e0 >> 1), dense)")],
+}
+
+
+def print_ptxas(name: str, report: str, what: str) -> None:
+    """The ptxas lines of ``report`` for the entry functions whose names hold ``what``."""
+    entry = ""
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif what in entry and ("registers" in ln or "spill" in ln):
+            print(f"[ptxas] {name} {entry}: {ln.strip()}")
+
+
+def fwd_sectors(spec, x):
+    """The 32-byte table sectors K1's corner loads ask for on x [N, 3], from
+    the port's ``grid_corners``: (requests: the distinct sectors of each
+    shipped load instruction, 32 consecutive points at one level, the
+    x-pair's pair load and, where e0 ^ e1 != 1, e1's own; then the distinct
+    sectors of each block of 32 and of 128 points over all levels, what
+    the SMs fetch where L1 keeps a sector for the block's life)."""
+    import torch
+
+    from xrdslam_tpu_torch.ops.encodings import grid_corners
+
+    rows, _ = grid_corners(torch.clamp(x, 0.0, 1.0), spec)  # [N, L, 8], corner c = 4 cx + 2 cy + cz
+    base = torch.arange(spec.n_levels, device=x.device)[None, :, None] * spec.table_size
+    sec = (rows + base) >> 2
+    n = x.shape[0] // 128 * 128
+
+    def distinct(a, per):  # distinct non-negative values in each run of ``per`` entries
+        a = a.reshape(-1, per).sort(dim=1).values
+        return int(((a[:, 1:] != a[:, :-1]) & (a[:, 1:] >= 0)).sum() + (a[:, 0] >= 0).sum())
+
+    e0, e1 = rows[:n, :, :4], rows[:n, :, 4:]
+    s1 = torch.where((e0 ^ e1) == 1, -1, sec[:n, :, 4:])
+    warp = lambda a: a.reshape(n // 32, 32, -1).transpose(1, 2)  # noqa: E731  (instruction, lane)
+    requests = distinct(warp(sec[:n, :, :4]), 32) + distinct(warp(s1), 32)
+    return requests, distinct(sec[:n], 32 * rows.shape[1] * 8), distinct(sec[:n], 128 * rows.shape[1] * 8)
+
+
+def hashgrid_fwd_variants(spec, device) -> None:
+    """K1 and K8 as shipped, as the point-major forward and as each variant
+    (G = 1, 2, 4, 16 levels a thread; ``FWD_VARIANTS``) at the four shapes of
+    ``fwd_shapes``: by CUDA events (the better of two rounds, the variants
+    in one order then the other) and device time, with the error against
+    the twin and whether the bits are the point-major forward's.
+    Nothing is gated but the builds and launches."""
+    import torch
+
+    from xrdslam_tpu_torch import kernels
+    from xrdslam_tpu_torch.ops import hashgrid_fast as hf
+    from xrdslam_tpu_torch.ops import hashgrid_planes as hp
+
+    gs, (k1_g, k8_g) = fwd_g_variants((1, 2, 4, 16))
+    shipped = f"shipped (K1 G{k1_g}, K8 G{k8_g})"
+    variants = {"point-major": POINT_MAJOR_FWD_CU, **gs, **FWD_VARIANTS}
+    built = build_variants("hashgrid", variants, kernels.BUILD_DIR / "variants")
+    for name in variants:
+        print_ptxas(name, VARIANT_PTXAS[name], "fwd")
+    libs = {"point-major": built.pop("point-major"), shipped: kernels.load("hashgrid"), **built}
+    for lib in libs.values():
+        bind_fwd(lib)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(-0.05, 1.05, (N_MAP, 3)).astype(np.float32), device=device)
+    table = torch.as_tensor(rng.standard_normal((spec.n_levels, spec.table_size, 2)).astype(np.float32), device=device)
+    for kernel, planes, tab in (("K1", False, table), ("K8", True, hp.pack_table(table))):
+        twin = hp.hashgrid_planes_fwd_torch if planes else hf.hashgrid_fwd_torch
+        for shape, xs in fwd_shapes(x, device).items():
+            want = twin(tab, xs, spec)
+            outs = {name: fwd_call(lib, planes, tab, xs, spec, torch.empty_like(want)) for name, lib in libs.items()}
+            runs = {name: (lambda lib=lib, out=outs[name]: fwd_call(lib, planes, tab, xs, spec, out))
+                    for name, lib in libs.items()}
+            ev = {name: [] for name in libs}
+            for order in (list(libs), list(libs)[::-1]):
+                for name in order:
+                    ev[name].append(cuda_ms(runs[name]))
+            dev = {name: device_ms(run) for name, run in runs.items()}
+            b_ms, by = fwd_bound(spec, tab, xs, want)
+            if not planes:
+                req, blk32, blk128 = fwd_sectors(spec, xs)
+                t = dev[shipped]
+                print(f"[sectors] K1 [{shape}] N={xs.shape[0]}: {req / 1e6:.3f} M sector requests by the shipped "
+                      f"loads; distinct per block of 32 points {blk32 / 1e6:.3f} M, of 128 {blk128 / 1e6:.3f} M: "
+                      f"{32 * blk32 / t / 1e9:.2f} TB/s of 32-byte sectors at its device time {t:.4f} ms")
+            for name in libs:
+                err = float((outs[name] - want).abs().max())
+                same = torch.equal(outs[name], outs["point-major"])
+                print(f"[variant] {kernel} [{shape}] N={xs.shape[0]} {name}: {min(ev[name]):.4f} ms, device "
+                      f"{dev[name]:.4f} ms ({dev[name] / dev['point-major']:.3f} of the point-major's), max abs err "
+                      f"{err:.1e}, {'the point-major bits' if same else 'other bits'}; bound {b_ms:.4f} ms ({by})",
+                      flush=True)
+
+
 def steady_stats(frame_times):
     """Steady per-frame seconds as the reference benchmark computes them:
     drop the first 15 frames, then frames slower than 4x the median."""
@@ -532,7 +930,8 @@ def all_launches():
 # ---------------------------------------------------------------------------
 
 def check_hashgrid(spec, device):
-    """K1-K3 vs twin at the mapping shapes; returns the per-kernel records."""
+    """K1-K3 vs twin at the mapping shapes, K1 also at ``fwd_shapes``';
+    returns the per-kernel records."""
     import torch
 
     from xrdslam_tpu_torch.ops import hashgrid_fast as hf
@@ -542,15 +941,13 @@ def check_hashgrid(spec, device):
     g = torch.as_tensor(rng.standard_normal((N_MAP, spec.out_dim)).astype(np.float32), device=device)
     table = torch.as_tensor(rng.standard_normal((spec.n_levels, spec.table_size, 2)).astype(np.float32), device=device)
 
-    out_k = hf.hashgrid_fwd(table, x, spec)
+    fwd = check_fwd(False, table, fwd_shapes(x, device), spec)
     dt_k, dx_k = hf.hashgrid_bwd(table, x, g, spec, True, True)
     torch.cuda.synchronize()
-    out_t = hf.hashgrid_fwd_torch(table, x, spec)
     dt_t, dx_t = hf.hashgrid_bwd_torch(table, x, g, spec, True, True)
-    err = {"fwd": float((out_k - out_t).abs().max()), "dx": float((dx_k - dx_t).abs().max()),
-           "dtable": float((dt_k - dt_t).abs().max())}
-    scale = {"fwd": float(out_t.abs().max()), "dx": float(dx_t.abs().max()), "dtable": float(dt_t.abs().max())}
-    limit = {"fwd": FWD_ATOL, "dx": BWD_RTOL * scale["dx"], "dtable": BWD_RTOL * scale["dtable"]}
+    err = {"dx": float((dx_k - dx_t).abs().max()), "dtable": float((dt_k - dt_t).abs().max())}
+    scale = {"dx": float(dx_t.abs().max()), "dtable": float(dt_t.abs().max())}
+    limit = {"dx": BWD_RTOL * scale["dx"], "dtable": BWD_RTOL * scale["dtable"]}
     for k in err:
         check(k, err[k], limit[k], scale[k])
     err["dx+dtable"] = max(err["dx"], err["dtable"])
@@ -560,14 +957,12 @@ def check_hashgrid(spec, device):
 
     xt, gt = x[:N_TRACK].contiguous(), g[:N_TRACK].contiguous()
     times = {
-        "fwd": (lambda: hf.hashgrid_fwd(table, x, spec), lambda: hf.hashgrid_fwd_torch(table, x, spec)),
         "dx": (lambda: hf.hashgrid_bwd(table, x, g, spec, False, True),
                lambda: hf.hashgrid_bwd_torch(table, x, g, spec, False, True)),
         "dtable": (lambda: hf.hashgrid_bwd(table, x, g, spec, True, False),
                    lambda: hf.hashgrid_bwd_torch(table, x, g, spec, True, False)),
         "dx+dtable": (lambda: hf.hashgrid_bwd(table, x, g, spec, True, True),
                       lambda: hf.hashgrid_bwd_torch(table, x, g, spec, True, True)),
-        "fwd@track": (lambda: hf.hashgrid_fwd(table, xt, spec), lambda: hf.hashgrid_fwd_torch(table, xt, spec)),
         "dx@track": (lambda: hf.hashgrid_bwd(table, xt, gt, spec, False, True),
                      lambda: hf.hashgrid_bwd_torch(table, xt, gt, spec, False, True)),
     }
@@ -580,12 +975,11 @@ def check_hashgrid(spec, device):
     # Bounds at N points x L levels. Bytes: each input read once, each output
     # written once. Operations per (point, level), float only: 3 x 4 for the
     # cell position and fraction; per corner 2 products for its weight, and
-    # 2 multiply-adds (4 operations) for the forward, for the dtable terms or
-    # for g.f and the 3 derivative terms (about 10) of dx.
+    # 2 multiply-adds (4 operations) for the dtable terms or for g.f and
+    # the 3 derivative terms (about 10) of dx.
     pl = N_MAP * spec.n_levels
     dx_out = torch.empty((N_MAP, 3), device=device)
     bounds = {
-        "fwd": bound(nbytes(table, x, out_k), pl * (12 + 8 * 6)),
         "dx": bound(nbytes(table, x, g, dx_out), pl * (12 + 8 * 12)),
         "dtable": bound(nbytes(x, g, dt_k), pl * (12 + 8 * 6)),
         "dx+dtable": bound(nbytes(table, x, g, dx_out, dt_k), pl * (12 + 8 * 16)),
@@ -594,22 +988,23 @@ def check_hashgrid(spec, device):
         print(f"[bound] {k}: {b_ms:.4f} ms ({by})")
     src = "xrdslam_tpu_torch/kernels/hashgrid.cu"
     ref = "xrdslam_tpu/ops/hashgrid_fast.py"
-    rows = (("hashgrid_fwd", "fwd", f"{ref}:202", "hashgrid_fwd"),
-            ("hashgrid_bwd[dx]", "dx", f"{ref}:216", "hashgrid_bwd_dx"),
+    rows = (("hashgrid_bwd[dx]", "dx", f"{ref}:216", "hashgrid_bwd_dx"),
             ("hashgrid_bwd[dtable]", "dtable", f"{ref}:95", "hashgrid_bwd_dtable"),
             # mapping's call: K2 and K3 in one backward
             ("hashgrid_bwd[dx+dtable]", "dx+dtable", f"{ref}:216 and :95", "hashgrid_bwd_dx_dtable"))
     # no single PyTorch call computes a hash-grid encoding or its gradients
-    return [{"name": name, "route": "cuda", "source": src, "replaces": rep, "counter": counter,
-             "max_abs_err": err[k], "ms": ms[k][0], "device_ms": dev[k], "plain_ms": ms[k][1],
-             "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
-            for name, k, rep, counter in rows]
+    return [{"name": "hashgrid_fwd", "route": "cuda", "source": src, "replaces": f"{ref}:202",
+             "counter": "hashgrid_fwd", **fwd_record(fwd)}] + [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "counter": counter,
+         "max_abs_err": err[k], "ms": ms[k][0], "device_ms": dev[k], "plain_ms": ms[k][1],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
+        for name, k, rep, counter in rows]
 
 
 def check_hashgrid_planes(spec, device):
     """K8/K9 vs twin at the mapping shape, on the plane layout of a random
-    office-spec table; returns the per-kernel records (0 launches: no path
-    calls them)."""
+    office-spec table, K8 also at ``fwd_shapes``'; returns the per-kernel
+    records (0 launches: no path calls them)."""
     import torch
 
     from xrdslam_tpu_torch.ops import hashgrid_planes as hp
@@ -620,48 +1015,40 @@ def check_hashgrid_planes(spec, device):
     table = torch.as_tensor(rng.standard_normal((spec.n_levels, spec.table_size, 2)).astype(np.float32), device=device)
     planes = hp.pack_table(table)
 
-    out_k = hp.hashgrid_planes_fwd(planes, x, spec)
+    fwd = check_fwd(True, planes, fwd_shapes(x, device), spec)
     dp_k, dx_k = hp.hashgrid_planes_bwd(planes, x, g, spec)
     torch.cuda.synchronize()
-    out_t = hp.hashgrid_planes_fwd_torch(planes, x, spec)
     dp_t, dx_t = hp.hashgrid_planes_bwd_torch(planes, x, g, spec)
-    err = {"fwd": float((out_k - out_t).abs().max()), "dx": float((dx_k - dx_t).abs().max()),
-           "dplanes": float((dp_k - dp_t).abs().max())}
-    scale = {"fwd": float(out_t.abs().max()), "dx": float(dx_t.abs().max()), "dplanes": float(dp_t.abs().max())}
-    limit = {"fwd": FWD_ATOL, "dx": BWD_RTOL * scale["dx"], "dplanes": BWD_RTOL * scale["dplanes"]}
+    err = {"dx": float((dx_k - dx_t).abs().max()), "dplanes": float((dp_k - dp_t).abs().max())}
+    scale = {"dx": float(dx_t.abs().max()), "dplanes": float(dp_t.abs().max())}
     for k in err:
-        check(f"planes {k}", err[k], limit[k], scale[k])
-    del out_t, dp_t, dx_t
-    kern = {"fwd": lambda: hp.hashgrid_planes_fwd(planes, x, spec), "bwd": lambda: hp.hashgrid_planes_bwd(planes, x, g, spec)}
-    ms = {"fwd": interleaved(kern["fwd"], lambda: hp.hashgrid_planes_fwd_torch(planes, x, spec)),
-          "bwd": interleaved(kern["bwd"], lambda: hp.hashgrid_planes_bwd_torch(planes, x, g, spec))}
-    dev = {k: device_ms(fn) for k, fn in kern.items()}
-    for k, (k_ms, t_ms) in ms.items():
-        print(f"[time] planes {k} N={N_MAP}: kernel {k_ms:.4f} ms, device {dev[k]:.4f} ms, twin {t_ms:.4f} ms")
-    # Bounds as for K1-K3; K9's operations per corner are K2's and K3's
+        check(f"planes {k}", err[k], BWD_RTOL * scale[k], scale[k])
+    del dp_t, dx_t
+    kern = lambda: hp.hashgrid_planes_bwd(planes, x, g, spec)  # noqa: E731
+    k_ms, t_ms = interleaved(kern, lambda: hp.hashgrid_planes_bwd_torch(planes, x, g, spec))
+    dev = device_ms(kern)
+    print(f"[time] planes bwd N={N_MAP}: kernel {k_ms:.4f} ms, device {dev:.4f} ms, twin {t_ms:.4f} ms")
+    # Bounds as for K2/K3; K9's operations per corner are K2's and K3's
     # together (the weight once): 2 + 4 + 10.
-    pl = N_MAP * spec.n_levels
-    bounds = {"fwd": bound(nbytes(planes, x, out_k), pl * (12 + 8 * 6)),
-              "bwd": bound(nbytes(planes, x, g, dx_k, dp_k), pl * (12 + 8 * 16))}
-    for k, (b_ms, by) in bounds.items():
-        print(f"[bound] planes {k}: {b_ms:.4f} ms ({by})")
+    b_ms, by = bound(nbytes(planes, x, g, dx_k, dp_k), N_MAP * spec.n_levels * (12 + 8 * 16))
+    print(f"[bound] planes bwd: {b_ms:.4f} ms ({by})")
     src, ref = "xrdslam_tpu_torch/kernels/hashgrid.cu", "xrdslam_tpu/ops/pallas_hashgrid.py"
-    rows = (("hashgrid_planes_fwd", "fwd", f"{ref}:103 (_fwd_kernel; nothing in the repository calls it)",
-             err["fwd"]),
-            ("hashgrid_planes_bwd", "bwd", f"{ref}:123 (_bwd_kernel; nothing in the repository calls it)",
-             max(err["dx"], err["dplanes"])))
     # no single PyTorch call computes a hash-grid encoding or its gradients
-    return [{"name": name, "route": "cuda", "source": src, "replaces": rep, "counter": None,
-             "max_abs_err": e, "ms": ms[k][0], "device_ms": dev[k], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
-             "bound_by": bounds[k][1], "library_ms": None}
-            for name, k, rep, e in rows]
+    return [{"name": "hashgrid_planes_fwd", "route": "cuda", "source": src,
+             "replaces": f"{ref}:103 (_fwd_kernel; nothing in the repository calls it)", "counter": None,
+             **fwd_record(fwd)},
+            {"name": "hashgrid_planes_bwd", "route": "cuda", "source": src,
+             "replaces": f"{ref}:123 (_bwd_kernel; nothing in the repository calls it)", "counter": None,
+             "max_abs_err": max(err.values()), "ms": k_ms, "device_ms": dev, "plain_ms": t_ms, "bound_ms": b_ms,
+             "bound_by": by, "library_ms": None}]
 
 
+@functools.lru_cache(maxsize=None)
 def office_surface_points(device, n_rays: int = 4096):
     """Co-SLAM's mapping samples on office frame 0 at 600x340 at its pose,
     normalised to the scene's bounds as the model encodes them: 4,096 random
     pixels x 43 depth-guided samples (32 uniform, 11 within 10 cm of the
-    surface), [N_MAP, 3]."""
+    surface), ray-major, [N_MAP, 3]; made once per device."""
     import torch
 
     from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
@@ -1039,6 +1426,7 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     import torch
 
     from xrdslam_tpu_torch.configs.registry import algorithm_configs
+    from xrdslam_tpu_torch.ops import hashgrid_fast as hf
     from xrdslam_tpu_torch.utils.eval_ate import evaluate_ate
 
     name = algorithm + tag
@@ -1066,6 +1454,7 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {k: v for k, v in all_launches().items() if k in counters}
+    by_n = {str(n): c for n, c in sorted(hf.FWD_LAUNCHES_BY_N.items())}
     algo = pipeline.algorithm
     est = algo.estimate_c2w_list
     if len(est) != n_frames or algo._nonfinite_poses or not all(np.isfinite(p).all() for p in est):
@@ -1078,6 +1467,8 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
            # translation error of each frame before alignment (cm)
            "frame_err_cm": [round(float(np.linalg.norm(e[:3, 3] - g[:3, 3])) * 100, 3)
                             for e, g in zip(est, algo.gt_c2w_list)]}
+    if "hashgrid_fwd" in counters:  # K1's launches split by N, read with the others
+        res["hashgrid_fwd_by_n"] = by_n
     if n_frames > 15:
         res["steady_s_per_frame"], res["spikes_dropped"] = steady_stats(pipeline.frame_times)
     else:  # too few frames for the steady rule: the mean after the first (its first mapping)
@@ -1497,6 +1888,9 @@ def main(argv) -> None:
     if argv == ["--scatter-variants"]:
         scatter_variants(spec, device)
         return
+    if argv == ["--hashgrid-fwd-variants"]:
+        hashgrid_fwd_variants(spec, device)
+        return
     if argv:
         raise SystemExit(f"chip_smoke.py: unknown arguments {argv}")
     records = check_hashgrid(spec, device)
@@ -1515,11 +1909,33 @@ def main(argv) -> None:
     bounds = office_bounds(office)
     coslam_data = f"n_frames={COSLAM_FRAMES},{office}"
     bench = {"algorithm.mapping_bound": bounds, "algorithm.max_keyframes": max(COSLAM_FRAMES // 5 + 2, 8)}
-    # the exact hash grid (K1-K3), an option of the registry's entry
-    pipeline, res = run_slam("co-slam", coslam_data, ("hashgrid_fwd", "hashgrid_bwd_dx", "hashgrid_bwd_dtable",
-                                                      "hashgrid_bwd_dx_dtable"),
-                             {**bench, "algorithm.model.hash_packed": False}, ATE_LIMIT_CM, tag="@exact")
+    # the exact hash grid (K1-K3), an option of the registry's entry; K1's
+    # launches by N are the wrapper's own count (FWD_LAUNCHES_BY_N), and the
+    # first inputs at each N are kept to time K1 on them after the run
+    from xrdslam_tpu_torch.ops import hashgrid_fast as hf
+
+    fwd_inputs, shipped_fwd = {}, hf.hashgrid_fwd
+
+    def keep_first_inputs(table, x, spec):
+        if x.shape[0] not in fwd_inputs:
+            fwd_inputs[x.shape[0]] = (table.detach().clone(), x.detach().clone(), spec)
+        return shipped_fwd(table, x, spec)
+
+    hf.hashgrid_fwd = keep_first_inputs
+    try:
+        pipeline, res = run_slam("co-slam", coslam_data, ("hashgrid_fwd", "hashgrid_bwd_dx", "hashgrid_bwd_dtable",
+                                                          "hashgrid_bwd_dx_dtable"),
+                                 {**bench, "algorithm.model.hash_packed": False}, ATE_LIMIT_CM, tag="@exact")
+    finally:
+        hf.hashgrid_fwd = shipped_fwd
     launches = dict(res["launches"])
+    by_n = res["hashgrid_fwd_by_n"]
+    print(f"[launches] co-slam@exact hashgrid_fwd by N: {json.dumps(by_n)}")
+    if sum(by_n.values()) != launches["hashgrid_fwd"] or set(by_n) != {str(n) for n in fwd_inputs}:
+        raise RuntimeError(f"co-slam@exact: K1's launches by N {by_n} do not sum to its {launches['hashgrid_fwd']} "
+                           f"launches or miss an N it was called at ({sorted(fwd_inputs)})")
+    next(r for r in records if r["name"] == "hashgrid_fwd")["by_n"] = fwd_by_n(by_n, fwd_inputs)
+    del fwd_inputs
     profile_coslam(pipeline, "co-slam@exact")
     stamp("co-slam@exact run and profile")
     del pipeline

@@ -84,6 +84,40 @@ def test_spec_matches_jax(jx, case):
     assert sum(office.dense) == 5
 
 
+def ray_samples(rng, n: int, spec) -> np.ndarray:
+    """[n, 3] float32 points in the main path's order: rays of 43 sorted
+    samples each, so that consecutive points often share a cell; a third of
+    the points have one coordinate on a cell boundary k/res of a random
+    level; rows 0-3 (where n >= 4) sit at 0, at 1 and outside the box."""
+    n_rays = n // 43 + 1
+    o = rng.uniform(-0.1, 1.1, (n_rays, 3))
+    d = rng.standard_normal((n_rays, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = np.sort(rng.uniform(0.0, 1.2, (n_rays, 43)), axis=1)
+    x = (o[:, None] + t[..., None] * d[:, None]).reshape(-1, 3)[:n].astype(np.float32)
+    k = rng.choice(n, n // 3, replace=False)
+    res = np.asarray(spec.resolutions)[rng.integers(0, spec.n_levels, len(k))]
+    x[k, rng.integers(0, 3, len(k))] = (rng.integers(0, res + 1) / res).astype(np.float32)
+    if n >= 4:
+        x[0], x[1], x[2, 0], x[3, 2] = 0.0, 1.0, -0.25, 1.5
+    return x
+
+
+@pytest.mark.parametrize("oracle", ["reference", "tpu_kernel"])
+def test_fwd_matches_jax_on_ray_samples(jx, oracle):
+    """The twin, the CUDA forward's oracle, on the kind of input the card's
+    tests give the kernel: ray-ordered, boundary-heavy, at 0, 1 and
+    outside the box (516 points, 6 levels; 1e-6 absolute, as above)."""
+    rng = np.random.default_rng(7)
+    jspec, tspec = jx.enc.hashgrid_spec(*SPEC_ARGS), tenc.hashgrid_spec(*SPEC_ARGS)
+    x = ray_samples(rng, 516, tspec)
+    table = rng.uniform(-1.0, 1.0, (tspec.n_levels, tspec.table_size, 2)).astype(np.float32)
+    fn = jx.enc.hashgrid_encode if oracle == "reference" else jx.hf.hashgrid_encode_kern
+    want = np.asarray(fn(jx.jnp.asarray(table), jx.jnp.asarray(x), jspec))
+    got = thf.hashgrid_fwd(torch.from_numpy(table), torch.from_numpy(x), tspec).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("oracle", ["reference", "tpu_kernel"])
 def test_fwd_matches_jax(jx, case, oracle):
     jspec, tspec, table, x, _, _ = case
@@ -153,6 +187,18 @@ def test_wrappers_reject_other_devices(case):
         thf.hashgrid_bwd(torch.empty(table.shape, device="meta"), meta, torch.empty(g.shape, device="meta"), tspec)
 
 
+def test_cpu_forward_counts_no_launch(case):
+    """A CPU tensor takes the twin: neither ``LAUNCHES`` nor the count by N
+    moves, which count kernel launches only."""
+    _, tspec, table, x, _, _ = case
+    before, before_n = dict(thf.LAUNCHES), dict(thf.FWD_LAUNCHES_BY_N)
+    thf.hashgrid_fwd(torch.from_numpy(table), torch.from_numpy(x), tspec)
+    assert thf.LAUNCHES == before and thf.FWD_LAUNCHES_BY_N == before_n
+    thf.FWD_LAUNCHES_BY_N[N] = 3
+    thf.reset_launches()
+    assert thf.FWD_LAUNCHES_BY_N == {} and not any(thf.LAUNCHES.values())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 1000, 44_032])
 def test_cuda_kernels_match_twin(n):
@@ -164,11 +210,12 @@ def test_cuda_kernels_match_twin(n):
     x = torch.as_tensor(rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32), device=dev)
     g = torch.as_tensor(rng.standard_normal((n, spec.out_dim)).astype(np.float32), device=dev)
     table = torch.as_tensor(rng.standard_normal((16, spec.table_size, 2)).astype(np.float32), device=dev)
-    before = dict(thf.LAUNCHES)
+    before, before_n = dict(thf.LAUNCHES), thf.FWD_LAUNCHES_BY_N.get(n, 0)
     out = thf.hashgrid_fwd(table, x, spec)
     dt, dx = thf.hashgrid_bwd(table, x, g, spec)
     torch.cuda.synchronize()
     assert thf.LAUNCHES["hashgrid_fwd"] == before["hashgrid_fwd"] + 1
+    assert thf.FWD_LAUNCHES_BY_N[n] == before_n + 1
     assert thf.LAUNCHES["hashgrid_bwd_dx"] == before["hashgrid_bwd_dx"] + 1
     assert thf.LAUNCHES["hashgrid_bwd_dtable"] == before["hashgrid_bwd_dtable"] + 1
     want = thf.hashgrid_fwd_torch(table, x, spec)
@@ -226,3 +273,54 @@ def test_cuda_dtable_in_one_level0_cell():
     dt_w, dx_w = thf.hashgrid_bwd_torch(table, x, g, spec)
     assert (dt - dt_w).abs().max().item() <= 1e-4 * dt_w.abs().max().item()
     assert (dx - dx_w).abs().max().item() <= 1e-4 * dx_w.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 12, 16, 32])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 44_032])
+def test_cuda_fwd_on_ray_samples(n, levels):
+    """The level-major forward against its twin on ray-ordered samples with
+    points on cell boundaries, at 0, at 1 and outside the box, at counts
+    that are not a multiple of a warp's 32 points or of a thread's levels:
+    within 1e-5 (FWD_ATOL of chip_smoke.py), and the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
+    spec = tenc.hashgrid_spec(levels, 2, 16, 16, 319)
+    rng = np.random.default_rng(1000 * levels + n)
+    dev = torch.device("cuda")
+    x = torch.as_tensor(ray_samples(rng, n, spec), device=dev)
+    table = torch.as_tensor(rng.standard_normal((levels, spec.table_size, 2)).astype(np.float32), device=dev)
+    outs = [thf.hashgrid_fwd(table, x, spec) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert (outs[0] - thf.hashgrid_fwd_torch(table, x, spec)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_on_misaligned_table():
+    """A table view that starts 8 bytes past a 16-byte boundary (a slice of a
+    larger buffer): the wrapper copies it and gives the aligned table's
+    bits; the C function, which reads x-pairs as float4, refuses the
+    pointer with cudaErrorMisalignedAddress (716) through ``kernels.check``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
+    from xrdslam_tpu_torch import kernels
+
+    spec = tenc.hashgrid_spec(16, 2, 16, 16, 319)
+    rng = np.random.default_rng(16)
+    dev = torch.device("cuda")
+    n = 1000
+    x = torch.as_tensor(ray_samples(rng, n, spec), device=dev)
+    table = torch.as_tensor(rng.standard_normal((16, spec.table_size, 2)).astype(np.float32), device=dev)
+    buf = torch.empty(table.numel() + 2, dtype=torch.float32, device=dev)
+    view = buf[2:].view(table.shape)
+    view.copy_(table)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    got, want = thf.hashgrid_fwd(view, x, spec), thf.hashgrid_fwd(table, x, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    res, dense = thf.level_args(spec)
+    out = torch.empty_like(want)
+    with pytest.raises(RuntimeError, match="cudaError 716"):
+        thf._FWD(view.data_ptr(), x.data_ptr(), out.data_ptr(), n, spec.n_levels, spec.log2_table_size, res, dense,
+                 kernels.stream(x))

@@ -19,7 +19,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_hashgrid import ray_samples  # noqa: E402
 from xrdslam_tpu_torch.ops import encodings as tenc  # noqa: E402
+from xrdslam_tpu_torch.ops import hashgrid_fast as thf  # noqa: E402
 from xrdslam_tpu_torch.ops import hashgrid_planes as thp  # noqa: E402
 
 
@@ -172,3 +174,56 @@ def test_cuda_kernels_match_twin(n):
     xg = x.clone().requires_grad_(True)
     (dx_auto,) = torch.autograd.grad(torch.sum(thp.hashgrid_encode_planes(planes, xg, spec) * g), [xg])
     assert (dx_auto - dx_w).abs().max().item() <= BWD_RTOL * dx_w.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 12, 16, 32])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 44_032])
+def test_cuda_fwd_on_ray_samples(n, levels):
+    """K8 against its twin on ray-ordered, boundary-heavy samples at ragged
+    counts (1e-5 absolute); the same bits twice, and the same bits as K1 on
+    the same table in the [L, T, 2] layout (one kernel, one arithmetic)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
+    spec = tenc.hashgrid_spec(levels, 2, 16, 16, 319)
+    rng = np.random.default_rng(1000 * levels + n)
+    dev = torch.device("cuda")
+    x = torch.as_tensor(ray_samples(rng, n, spec), device=dev)
+    table = torch.as_tensor(rng.standard_normal((levels, spec.table_size, 2)).astype(np.float32), device=dev)
+    planes = thp.pack_table(table)
+    outs = [thp.hashgrid_planes_fwd(planes, x, spec) for _ in range(2)]
+    k1 = thf.hashgrid_fwd(table, x, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], k1)
+    assert (outs[0] - thp.hashgrid_planes_fwd_torch(planes, x, spec)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_on_misaligned_planes():
+    """Planes that start 4 bytes past an 8-byte boundary: the wrapper copies
+    them and gives the aligned planes' bits; the C function, which reads an
+    entry pair as one float2 per feature, refuses the pointer with
+    cudaErrorMisalignedAddress (716) through ``kernels.check``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
+    from xrdslam_tpu_torch import kernels
+
+    spec = tenc.hashgrid_spec(16, 2, 16, 16, 319)
+    rng = np.random.default_rng(16)
+    dev = torch.device("cuda")
+    n = 1000
+    x = torch.as_tensor(ray_samples(rng, n, spec), device=dev)
+    planes = torch.as_tensor(rng.standard_normal((16, 2, 512, 128)).astype(np.float32), device=dev)
+    buf = torch.empty(planes.numel() + 1, dtype=torch.float32, device=dev)
+    view = buf[1:].view(planes.shape)
+    view.copy_(planes)
+    assert view.is_contiguous() and view.data_ptr() % 8 == 4
+    got, want = thp.hashgrid_planes_fwd(view, x, spec), thp.hashgrid_planes_fwd(planes, x, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    res, dense = thf.level_args(spec)
+    out = torch.empty_like(want)
+    with pytest.raises(RuntimeError, match="cudaError 716"):
+        thp._FWD(view.data_ptr(), x.data_ptr(), out.data_ptr(), n, spec.n_levels, spec.log2_table_size, res, dense,
+                 kernels.stream(x))

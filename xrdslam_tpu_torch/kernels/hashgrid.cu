@@ -18,14 +18,48 @@
 // Other layouts: x [N, 3] f32, encoding [N, L*2] f32, dx [N, 3] f32; the
 // table gradient has the table's layout.
 //
-// What bounds it on this card: every (point, level) reads 8 random 8-byte
-// table entries (and in the backward adds 16 floats to random entries), so the
-// kernels are bound by memory latency, not by arithmetic or bandwidth. The
-// design keeps the traffic to those rows and nothing else: one thread per
-// (point, level) with the level fastest, so the threads of one point sit in
-// one warp, read x once through the cache and write the point's encoding as
-// one contiguous run; each [L, T, 2] entry is read as one float2 (a plane
-// entry as two floats T apart: two 4-byte loads); no [L, 2, 8, N]
+// The forward (K1, K8). Every (point, level) reads 8 table entries of 8
+// bytes. The whole table (16 levels x 2^16 x 8 B = 8.4 MB at the office
+// spec) sits in the 50 MB L2, so DRAM bytes are far from the limit; what
+// sets the pace is the number of 32-byte sector requests the corner loads
+// make through L1 and L2 (an inference from the code and from sector counts
+// of the port's own grid_corners on the CPU; the card's profilers do not
+// run on its machine). The former design (one thread per (point, level),
+// levels fastest) gave a warp 2 points x 16 levels: each corner load
+// touched 16 tables, 32 sectors for 256 useful bytes, and mixed dense and
+// hashed levels. This one:
+//  - level-major warps: a warp's 32 lanes are 32 consecutive points at one
+//    level, so an instruction reads one level's table, the dense/hash branch
+//    is uniform, and consecutive samples of a ray share cells and sectors on
+//    the coarse levels; a thread takes kFwdLevels (G) levels of its point
+//    and issues their loads before their multiply-adds;
+//  - x-pair loads: corners (0, cy, cz) and (1, cy, cz) are entries e0 and
+//    e1; where they form one aligned 16-byte pair of [L, T, 2] (a dense
+//    level's e and e + 1 for even e, a hashed level's e and e ^ 1 for even
+//    ix) one float4 load brings both, else a second float2 load follows (on
+//    the plane layout one float2 per feature, two scalars for e1 else);
+//  - x staged in shared memory (one load per point) and the block's
+//    outputs, one contiguous [P, 2L] run of out, staged there too and
+//    written as 16-byte stores;
+//  - the same arithmetic per (point, level) as the former kernel
+//    (cell_axis, corner_row, the weight product's association, the sum
+//    over corners in the order c = 0..7): the same bits.
+// Measured (chip_smoke.py and its --hashgrid-fwd-variants; H100 80GB HBM3,
+// 700 W; device time at N = 176,128, office surface samples; PERF.md):
+// K1 0.066 ms against 0.093 for the former kernel, K8 0.115 against 0.212.
+// Loads alone, no weights, take as long: the access pattern is the floor.
+// G is per layout. K1 takes G = 2: summed over the exact-hash Co-SLAM run's
+// own launches (1,030, 710 of them at N <= 44,032) its time is 2%
+// below G = 4's and 4% below G = 1's, at 70 registers against 122. K8 takes
+// G = 4, 13-15% faster than G = 2 on the plane layout. G = 16 spills.
+// Without staging the outputs 56% slower; without x-pair loads 6% slower.
+// 4x the points per block, the largest L1 carveout, and the hashed levels'
+// loads kept out of L1 are each slower: a sector another warp of the SM
+// fetched is worth keeping in L1.
+//
+// The backward (K2, K3, K9) is bound the same way, by memory latency: one
+// thread per (point, level) with the level fastest (below), each entry read
+// as one float2 (a plane entry as two floats T apart); no [L, 2, 8, N]
 // feature residual is saved (the backward re-gathers, which costs the same
 // rows the TPU's residual would have re-read from device memory).
 //
@@ -124,35 +158,117 @@ __device__ __forceinline__ void add_pair(float* level, const uint32_t e[2], uint
   add_entry<kPlanes>(level, e[1], t, w[1] * g.x, w[1] * g.y);
 }
 
+// G, the levels of one point a thread takes, for each layout (the header;
+// chip_smoke.py --hashgrid-fwd-variants rebuilds this file with other values)
+template <bool kPlanes>
+constexpr int kFwdLevels = kPlanes ? 4 : 2;
+
+// Entries e0 and e1 of an x-pair (corners (0, cy, cz) and (1, cy, cz)). One
+// load brings e0's aligned pair (e0 & ~1, e0 | 1): a float4 of [L, T, 2], a
+// float2 per feature of [L, 2, T]; e1 comes from it where e0 ^ e1 == 1, else
+// from a load of its own.
+template <bool kPlanes>
+__device__ __forceinline__ void load_pair(const float* __restrict__ level, uint32_t e0, uint32_t e1, uint32_t t,
+                                          float2* f0, float2* f1) {
+  float2 even, odd;  // the pair's entries e0 & ~1 and e0 | 1
+  if (kPlanes) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(level + (e0 & ~1u)));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(level + t + (e0 & ~1u)));
+    even = make_float2(a.x, b.x);
+    odd = make_float2(a.y, b.y);
+  } else {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(level) + (e0 >> 1));
+    even = make_float2(v.x, v.y);
+    odd = make_float2(v.z, v.w);
+  }
+  const bool e0_odd = (e0 & 1u) != 0u;
+  *f0 = e0_odd ? odd : even;
+  *f1 = (e0 ^ e1) == 1u ? (e0_odd ? even : odd) : load_entry<kPlanes>(level, e1, t);
+}
+
+// A staged point's floats in shared memory: its 2L outputs padded to a
+// multiple of 4 and by 4 more (16-byte rows; a warp's rows start on
+// different banks).
+__host__ __device__ __forceinline__ int fwd_row(int n_levels) { return (2 * n_levels + 4) & ~3; }
+
+// Forward, level-major: a block of 8 warps takes 32 x chunks consecutive
+// points; its warp tasks are (32 points, G levels), chunks x groups of them.
 template <bool kPlanes>
 __global__ void __launch_bounds__(kThreads)
 hashgrid_fwd_kernel(const float* __restrict__ table, const float* __restrict__ x,
-                    float* __restrict__ out, int64_t n, Levels lv) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n * lv.n_levels) return;
-  const int64_t p = t / lv.n_levels;
-  const int l = (int)(t - p * lv.n_levels);
-  const int res = lv.res[l];
-  const bool dense = lv.dense[l] != 0;
+                    float* __restrict__ out, int64_t n, Levels lv, int chunks) {
+  constexpr int G = kFwdLevels<kPlanes>;
+  extern __shared__ float4 fwd_smem[];
+  const int nl = lv.n_levels;
+  const int groups = (nl + G - 1) / G;
+  const int row = fwd_row(nl);
+  const int pb = 32 * chunks;
+  float* xs = reinterpret_cast<float*>(fwd_smem);  // [pb, 3]
+  float* os = xs + 3 * pb;                           // [pb, row]: 16-byte aligned (pb is a multiple of 32)
+  const int64_t p0 = (int64_t)blockIdx.x * pb;
+  const int np = (int)(n - p0 < pb ? n - p0 : pb);
+  for (int i = threadIdx.x; i < 3 * np; i += kThreads) xs[i] = __ldg(x + 3 * p0 + i);
+  __syncthreads();
   const uint32_t mask = (1u << lv.log2_t) - 1u;
-  float fx, fy, fz;
-  uint32_t ix, iy, iz;
-  cell_axis(__ldg(x + 3 * p + 0), res, &fx, &ix);
-  cell_axis(__ldg(x + 3 * p + 1), res, &fy, &iy);
-  cell_axis(__ldg(x + 3 * p + 2), res, &fz, &iz);
   const uint32_t tsize = 1u << lv.log2_t;
-  const float* level = table + ((int64_t)l << (lv.log2_t + 1));
-  float a0 = 0.0f, a1 = 0.0f;
+  for (int task = threadIdx.x >> 5; task < chunks * groups; task += kThreads / 32) {
+    const int q = (task / groups) * 32 + (threadIdx.x & 31);  // the point within the block
+    const int l0 = (task % groups) * G;
+    if (q >= np) continue;
+    const float px = xs[3 * q + 0], py = xs[3 * q + 1], pz = xs[3 * q + 2];
+    float fx[G], fy[G], fz[G];
+    float2 f[G][8];
+    // every load of the task's levels, then their multiply-adds
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int cx = c >> 2, cy = (c >> 1) & 1, cz = c & 1;
-    const uint32_t e = corner_row(ix + cx, iy + cy, iz + cz, (uint32_t)res, dense, mask);
-    const float w = (cx ? fx : 1.0f - fx) * (cy ? fy : 1.0f - fy) * (cz ? fz : 1.0f - fz);
-    const float2 f = load_entry<kPlanes>(level, e, tsize);
-    a0 += w * f.x;
-    a1 += w * f.y;
+    for (int j = 0; j < G; ++j) {
+      const int l = l0 + j;
+      if (l >= nl) break;
+      const int res = lv.res[l];
+      const bool dense = lv.dense[l] != 0;
+      uint32_t ix, iy, iz;
+      cell_axis(px, res, &fx[j], &ix);
+      cell_axis(py, res, &fy[j], &iy);
+      cell_axis(pz, res, &fz[j], &iz);
+      const float* level = table + ((int64_t)l << (lv.log2_t + 1));
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // x-pair k = 2 cy + cz: corners c = k and k + 4
+        const uint32_t gy = iy + (k >> 1), gz = iz + (k & 1);
+        load_pair<kPlanes>(level, corner_row(ix, gy, gz, (uint32_t)res, dense, mask),
+                           corner_row(ix + 1, gy, gz, (uint32_t)res, dense, mask), tsize, &f[j][k], &f[j][k + 4]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int l = l0 + j;
+      if (l >= nl) break;
+      float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int cx = c >> 2, cy = (c >> 1) & 1, cz = c & 1;
+        const float w = (cx ? fx[j] : 1.0f - fx[j]) * (cy ? fy[j] : 1.0f - fy[j]) * (cz ? fz[j] : 1.0f - fz[j]);
+        a0 += w * f[j][c].x;
+        a1 += w * f[j][c].y;
+      }
+      reinterpret_cast<float2*>(os + q * row)[l] = make_float2(a0, a1);
+    }
   }
-  reinterpret_cast<float2*>(out)[t] = make_float2(a0, a1);
+  __syncthreads();
+  // the block's [np, 2L] outputs are one contiguous run of out: 16-byte
+  // stores where 2L is a multiple of 4, else 8-byte ones
+  if (nl % 2 == 0) {
+    const int w = nl / 2;
+    float4* dst = reinterpret_cast<float4*>(out + p0 * 2 * nl);
+    for (int i = threadIdx.x; i < np * w; i += kThreads) {
+      const int r = i / w;
+      dst[i] = reinterpret_cast<const float4*>(os + r * row)[i - r * w];
+    }
+  } else {
+    float2* dst = reinterpret_cast<float2*>(out + p0 * 2 * nl);
+    for (int i = threadIdx.x; i < np * nl; i += kThreads) {
+      const int r = i / nl;
+      dst[i] = reinterpret_cast<const float2*>(os + r * row)[i - r * nl];
+    }
+  }
 }
 
 // Backward, point-major: one thread per (point, level slot), the slots of a
@@ -241,7 +357,19 @@ int launch_fwd(const float* table, const float* x, float* out, long long n, int 
   Levels lv;
   int err = make_levels(n_levels, log2_t, res, dense, &lv);
   if (err != 0 || n == 0) return err;
-  hashgrid_fwd_kernel<kPlanes><<<n_blocks(n * n_levels), kThreads, 0, (cudaStream_t)stream>>>(table, x, out, n, lv);
+  // the pair loads read 16 bytes of [L, T, 2] (8 of [L, 2, T]); the staged
+  // outputs are written 16 bytes at a time
+  if (reinterpret_cast<uintptr_t>(table) % (kPlanes ? 8 : 16) != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  // chunks x groups warp tasks for a block's 8 warps; shared memory for any
+  // G <= 16 and L <= 32 at most 256 x (3 + 36) floats (G = L = 16), 39.9 KB:
+  // below the 48 KB a launch takes without opting in
+  const int groups = (n_levels + kFwdLevels<kPlanes> - 1) / kFwdLevels<kPlanes>;
+  const int chunks = groups >= kThreads / 32 ? 1 : (kThreads / 32) / groups;
+  const int64_t pb = 32 * chunks;
+  const size_t smem = sizeof(float) * pb * (3 + fwd_row(n_levels));
+  hashgrid_fwd_kernel<kPlanes><<<(unsigned int)((n + pb - 1) / pb), kThreads, smem, (cudaStream_t)stream>>>(
+      table, x, out, n, lv, chunks);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,12 @@ Counterpart of ``xrdslam_tpu/ops/hashgrid_fast.py``: the exact per-vertex
 hash grid (tcnn HashGrid layout), table ``[L, T, F]``, x ``[..., 3]``.
 
 * ``hashgrid_fwd`` replaces the TPU's trilinear-forward kernel (K1,
-  ``_trilerp_fwd_kernel``) and the XLA corner gather before it.
+  ``_trilerp_fwd_kernel``) and the XLA corner gather before it: warps of
+  32 consecutive points at one level, an x-pair's two corner entries in
+  one 16-byte load where they share an aligned pair, the block's outputs
+  staged in shared memory and stored as one contiguous run. It computes
+  the same bits as one thread per (point, level) would (the same
+  arithmetic, the corners summed in the same order).
 * ``hashgrid_bwd`` replaces the position-gradient kernel (K2,
   ``_trilerp_bwd_kernel``) and the table-gradient kernel (K3,
   ``_dtable_kernel``): dx summed over a point's levels with warp shuffles
@@ -23,7 +28,8 @@ never zeroed outside [0,1]^3.
 ``LAUNCHES`` counts kernel launches: ``hashgrid_fwd`` per forward launch,
 ``hashgrid_bwd_dx`` / ``hashgrid_bwd_dtable`` per backward call that
 computed dx / dtable, ``hashgrid_bwd_dx_dtable`` per call that computed
-both (mapping's).
+both (mapping's). ``FWD_LAUNCHES_BY_N`` splits ``hashgrid_fwd`` by the
+number of points N of each launch.
 """
 from __future__ import annotations
 
@@ -37,11 +43,13 @@ from .encodings import CORNER_OFFSETS, HashGridSpec, flat_rows, grid_corners
 
 LAUNCHES: Dict[str, int] = {"hashgrid_fwd": 0, "hashgrid_bwd_dx": 0, "hashgrid_bwd_dtable": 0,
                             "hashgrid_bwd_dx_dtable": 0}
+FWD_LAUNCHES_BY_N: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    FWD_LAUNCHES_BY_N.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -119,9 +127,11 @@ def _check_cuda_inputs(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec)
             raise ValueError(f"{name} must be contiguous float32 on {x.device}")
 
 
-def float2_aligned(t: torch.Tensor) -> torch.Tensor:
-    """The kernels read table rows and g pairs as float2: 8-byte aligned."""
-    return t if t.data_ptr() % 8 == 0 else t.clone()
+def aligned(t: torch.Tensor, n_bytes: int) -> torch.Tensor:
+    """``t``, or a copy of it that starts on an ``n_bytes`` boundary: the
+    kernels read table entries and g pairs as float2 (8 bytes) and the
+    forward reads an x-pair of [L, T, 2] entries as one float4 (16)."""
+    return t if t.data_ptr() % n_bytes == 0 else t.clone()
 
 
 def hashgrid_fwd(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
@@ -129,12 +139,13 @@ def hashgrid_fwd(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec) -> to
     if kernels.on_cpu(x, "hash-grid encoding"):
         return hashgrid_fwd_torch(table, x, spec)
     _check_cuda_inputs(table, x, spec)
-    table = float2_aligned(table)
+    table = aligned(table, 16)
     res, dense = level_args(spec)
     out = torch.empty((x.shape[0], spec.out_dim), dtype=torch.float32, device=x.device)
     _FWD(table.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], spec.n_levels, spec.log2_table_size, res, dense,
          kernels.stream(x))
     LAUNCHES["hashgrid_fwd"] += 1
+    FWD_LAUNCHES_BY_N[x.shape[0]] = FWD_LAUNCHES_BY_N.get(x.shape[0], 0) + 1
     return out
 
 
@@ -150,7 +161,7 @@ def hashgrid_bwd(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, spec: Ha
     _check_cuda_inputs(table, x, spec)
     if g.shape != (x.shape[0], spec.out_dim) or g.dtype != torch.float32 or g.device != x.device:
         raise ValueError(f"g must be float32 [{x.shape[0]}, {spec.out_dim}] on {x.device}")
-    table, g = float2_aligned(table), float2_aligned(g.contiguous())
+    table, g = aligned(table, 8), aligned(g.contiguous(), 8)
     if not (need_dtable or need_dx):
         return None, None
     res, dense = level_args(spec)

@@ -7,7 +7,9 @@ hash-grid encode as ``ops.hashgrid_fast``, read from the TPU's plane layout
 feature ``f`` sits at ``planes[l, f, e >> 7, e & 127]``.
 
 * ``hashgrid_planes_fwd`` replaces the TPU's forward kernel (K8,
-  ``_fwd_kernel``): x is clamped to [0,1]^3, out is ``[N, 2L]``.
+  ``_fwd_kernel``): x is clamped to [0,1]^3, out is ``[N, 2L]``. It is
+  K1's design on this layout: an x-pair whose entries share an aligned
+  pair is read as one float2 per feature.
 * ``hashgrid_planes_bwd`` replaces the backward kernel (K9,
   ``_bwd_kernel``): dx and dplanes in one pass. dx is the gradient at the
   clamped point, not zeroed outside [0,1]^3 (as K2); dplanes is summed
@@ -33,7 +35,7 @@ import torch
 
 from .. import kernels
 from .encodings import HashGridSpec
-from .hashgrid_fast import float2_aligned, hashgrid_bwd_torch, hashgrid_fwd_torch, level_args
+from .hashgrid_fast import aligned, hashgrid_bwd_torch, hashgrid_fwd_torch, level_args
 
 LAUNCHES: Dict[str, int] = {"hashgrid_planes_fwd": 0, "hashgrid_planes_bwd": 0}
 LOG2_T = 16  # the TPU kernels' table size: T/128 = 512 rows per plane
@@ -107,6 +109,7 @@ def hashgrid_planes_fwd(planes: torch.Tensor, x: torch.Tensor, spec: HashGridSpe
     if kernels.on_cpu(x, "plane-layout hash-grid encoding"):
         return hashgrid_planes_fwd_torch(planes, x, spec)
     _check_cuda_inputs(planes, x, spec)
+    planes = aligned(planes, 8)
     res, dense = level_args(spec)
     out = torch.empty((x.shape[0], spec.out_dim), dtype=torch.float32, device=x.device)
     _FWD(planes.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], spec.n_levels, spec.log2_table_size, res,
@@ -127,7 +130,7 @@ def hashgrid_planes_bwd(planes: torch.Tensor, x: torch.Tensor, g: torch.Tensor, 
         raise ValueError(f"g must be float32 [{x.shape[0]}, {spec.out_dim}] on {x.device}")
     if not (need_dplanes or need_dx):
         return None, None
-    g = float2_aligned(g.contiguous())
+    g = aligned(g.contiguous(), 8)
     res, dense = level_args(spec)
     dplanes = torch.zeros_like(planes) if need_dplanes else None
     dx = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device) if need_dx else None
