@@ -51,7 +51,18 @@
    ``[protocol]`` line beside the JAX package's row of
    ``BENCH_ACCURACY.json`` and the verdicts of ``bench_accuracy.py``'s
    gates (read from the two files as data; only the ATE gate and finite
-   values fail the smoke);
+   values fail the smoke). These three runs go through the pipeline's
+   group path (each 5-frame group from frame 10 on is one CUDA graph
+   replay, a key's first group its warm-up and capture; each run must
+   have taken it), and each prints a ``[groups]`` line (the groups, the
+   frames each path took, the captures by key with their seconds, the
+   replays, the graph pool's memory) and a ``[graph]`` line: from one
+   saved state and generator state, the run's last group program eagerly
+   twice and its graph replayed once, the replay held to the eager
+   group's bits (the exact hash: poses, losses and keyframe rows within
+   ``GRAPH_EXACT_TOL``) and to its launches. Then the packed-hash run
+   again with ``XRDSLAM_DISABLE_SUPER=1`` (every frame per frame, gated
+   the same), and a ``[steady]`` line with the four runs' steady s/frame;
    SplaTAM on the office at 600x340 for 20 frames with the registry's
    settings but 512 slots per tile (gated); SplaTAM's main path,
    the same with the registry's settings (256 slots per tile; ATE
@@ -63,8 +74,9 @@
    each main path launched (the launch counts are zeroed just before each
    run and read just after).
 5. Profiles one tracking and one mapping call of each run on a main path
-   and of SplaTAM's K = 512 run with torch.profiler
-   (Point-SLAM's mapping call with 60 iterations): wall time, device busy
+   (of a Co-SLAM run also one replay of its last group's graph) and of
+   SplaTAM's K = 512 run with torch.profiler
+   (Point-SLAM's mapping call with 30 iterations): wall time, device busy
    time and the kernels that take it. ``[elapsed]`` lines stamp the
    phases.
 
@@ -140,10 +152,11 @@ PROTOCOL_FRAMES = 200  # bench_accuracy.py's sequence
 PROTOCOL_RENDER_FREQ = 50  # bench_accuracy.py's default render_freq
 SPLATAM_FRAMES = 20
 POINTSLAM_FRAMES = 12  # a first mapping of 1,500 iterations, then 11 x (40 tracking + 300 mapping)
-# The profiled Point-SLAM mapping call runs 60 of the registry's 300
+# The profiled Point-SLAM mapping call runs 30 of the registry's 300
 # iterations: torch.profiler took ~4.5 minutes of the host to process a
-# 300-iteration call (420,000 kernels); the iterations are alike.
-POINTSLAM_PROFILE_MAP_ITERS = 60
+# 300-iteration call (420,000 kernels), and a 60-iteration call about a
+# minute; the iterations are alike.
+POINTSLAM_PROFILE_MAP_ITERS = 30
 # SplaTAM's accuracy gate runs the main path's data and settings with one
 # change: 512 slots per tile. A tile keeps the K nearest of the gaussians
 # whose binning box (3 sigma + 8 px) overlaps it, up to 38 x 38 of them for
@@ -179,6 +192,12 @@ ATE_LIMIT_CM = 10.0
 # frame, so over Point-SLAM's 12 frames that camera scores 2.16 cm, far
 # inside ATE_LIMIT_CM, and only this bound tells tracking from none.
 FROZEN_ATE_SHARE = 0.5
+# A group replayed from a saved state against the eager group from the same
+# state and generator state ([graph]): the exact hash's table gradient adds
+# with fp32 atomics (K3) in another order in every run, so its poses (m,
+# rad), best losses (relative) and keyframe rows are held to this; the
+# packed hash and the tri-plane to the same bits.
+GRAPH_EXACT_TOL = 1e-4
 FWD_ATOL = 1e-5
 BWD_RTOL = 1e-4  # of max |twin|: sums in another order (fp32 atomics in K2-K4)
 # NVIDIA H100 SXM, published peaks (data sheet): HBM rate and float32 rate
@@ -1481,6 +1500,8 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
         res["overflowed"] = algo.point_map.overflowed
     with open(os.path.join(cfg.out_dir, "timings.json")) as f:
         res["phases"] = json.load(f)
+    if hasattr(algo, "graphs"):
+        res["groups"] = groups_report(pipeline, name)
     print(f"[slam] {json.dumps(res)}")
     if ate_limit_cm is not None:
         limit = min(ate_limit_cm, FROZEN_ATE_SHARE * frozen_cm)
@@ -1494,6 +1515,101 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     if missing:
         raise RuntimeError(f"{name}: kernels never launched on the main path: {missing}")
     return pipeline, res
+
+
+def groups_report(pipeline, name: str) -> dict:
+    """The ``[groups]`` line of a finished run: the groups dispatched and
+    the frames each path took, the captures by key (seconds of the warm-up,
+    the key's first group, and of the capture), the replays, and the
+    device memory of the graphs' pool."""
+    import torch
+
+    algo, G = pipeline.algorithm, pipeline.config.tracker.map_every
+    n = len(pipeline.dataset)
+    group_times = [pipeline.frame_times[h + j] for h in pipeline.groups for j in range(G)]
+    rep = {"groups": len(pipeline.groups), "group_heads": pipeline.groups,
+           # the median group frame: a key's first group (warm-up and capture)
+           # lands in the frame times of the group before it, and the group
+           # after it reads almost nothing (its work was done by then)
+           "group_frame_s_median": float(np.median(group_times)) if group_times else None,
+           "frames_in_groups": G * len(pipeline.groups), "frames_per_frame": n - G * len(pipeline.groups),
+           "captures": {str(k): v for k, v in algo.graphs.captures.items()},
+           "replays": {str(k): v for k, v in algo.graphs.replays.items()},
+           "pool_mib": algo.graphs.pool_bytes() / 2**20,
+           "memory_reserved_mib": torch.cuda.memory_reserved() / 2**20}
+    print(f"[groups] {name}: {json.dumps(rep)}")
+    return rep
+
+
+def through_groups(res: dict) -> None:
+    """A gated Co-SLAM run must have taken the group path, every group after
+    its first with a key replayed."""
+    g = res["groups"]
+    if not g["groups"] or sum(g["replays"].values()) + len(g["captures"]) != g["groups"]:
+        raise RuntimeError(f"{res['run']}: the group path did not carry the run: {g}")
+
+
+def group_inputs(pipeline):
+    """The run's last captured group program, its key and inputs: the last
+    ``map_every`` frames, seeded from the two estimated poses before them."""
+    from xrdslam_tpu_torch.common.frame import Frame
+    from xrdslam_tpu_torch.ops import lie_np
+
+    algo, G = pipeline.algorithm, pipeline.config.tracker.map_every
+    n = len(pipeline.dataset)
+    key = list(algo.graphs.captures)[-1]
+    frames = [Frame(fid=j, rgb=pipeline.dataset[j][1], depth=pipeline.dataset[j][2]) for j in range(n - G, n)]
+    est = algo.estimate_c2w_list
+    prev = [algo._pose(v) for c2w in (est[n - G - 1], est[n - G - 2])
+            for v in lie_np.matrix_to_pose_vec(np.asarray(c2w, np.float32), rot_rep="axis_angle")]
+    inputs = [f.rgb_dev(algo.device) for f in frames] + [f.depth_dev(algo.device) for f in frames] + prev
+    return key, algo._super_steps[key], inputs
+
+
+def check_group_replay(pipeline, name: str, exact: bool) -> None:
+    """``[graph]``: from one saved state and generator state, the group
+    program eagerly twice and its captured graph replayed once. The replay
+    must give the eager run's bits (the exact hash: within
+    ``GRAPH_EXACT_TOL``), and launch what the eager group launched. The
+    state is put back after."""
+    import torch
+
+    from xrdslam_tpu_torch.ops import hashgrid_fast as hf
+
+    algo = pipeline.algorithm
+    key, program, inputs = group_inputs(pipeline)
+    saved = algo.save_state()
+    runs = []
+    for how in ("eager", "eager", "replay"):
+        algo.load_state(saved)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out = program(*inputs) if how == "eager" else algo.graphs(key, program, inputs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**all_launches(), **{f"hashgrid_fwd@{k}": v for k, v in hf.FWD_LAUNCHES_BY_N.items()}}
+        runs.append((how, wall, [o.clone() for o in out], [t.detach().clone() for t in algo._state_tensors()], launches))
+    algo.load_state(saved)
+
+    def diff(a, b):
+        outs = max(float(((x - y).abs() / max(float(x.abs().max()), 1.0)).max()) for x, y in zip(a[2], b[2]))
+        kf = max(float((x.double() - y.double()).abs().max()) for x, y in zip(a[3][-4:], b[3][-4:]))
+        state = max(float((x.double() - y.double()).abs().max()) for x, y in zip(a[3], b[3]))
+        same = all(torch.equal(x, y) for x, y in zip(a[2] + a[3], b[2] + b[3]))
+        return {"same_bits": same, "poses_losses": outs, "keyframe_rows": kf, "state": state}
+
+    eager2, replay = diff(runs[0], runs[1]), diff(runs[0], runs[2])
+    rep = {"key": str(key), "eager_vs_eager": eager2, "replay_vs_eager": replay,
+           "eager_s": runs[0][1], "replay_s": runs[2][1], "launches_eager": runs[0][4],
+           "launches_replay": runs[2][4]}
+    print(f"[graph] {name}: {json.dumps(rep)}")
+    if runs[2][4] != runs[0][4]:
+        raise RuntimeError(f"{name}: a replay launched {runs[2][4]}, the eager group {runs[0][4]}")
+    if exact:
+        if max(replay["poses_losses"], replay["keyframe_rows"]) > GRAPH_EXACT_TOL:
+            raise RuntimeError(f"{name}: the replay is {replay} from the eager group (tolerance {GRAPH_EXACT_TOL})")
+    elif not replay["same_bits"]:
+        raise RuntimeError(f"{name}: the replay's bits differ from the eager group's: {replay}")
 
 
 def protocol_config(bounds):
@@ -1617,13 +1733,16 @@ def last_frame(pipeline):
 
 
 def profile_coslam(pipeline, name: str = "co-slam") -> None:
-    """One tracking and one (non-first) mapping call on the last frame; it
-    updates the finished run's map."""
+    """One replay of the run's last group graph (``group_inputs``), then one
+    tracking and one (non-first) mapping call on the last frame; they
+    update the finished run's map."""
     algo = pipeline.algorithm
+    key, program, inputs = group_inputs(pipeline)
     fr = last_frame(pipeline)
     args = (fr.rgb_dev(algo.device), fr.depth_dev(algo.device), algo._pose(fr.t), algo._pose(fr.r))
-    profile(name, {"track": lambda: algo.track_step(*args),
-                        "map": lambda: algo.map_step(*args, algo.config.mapping_n_iters, False, algo._cur_cap())})
+    profile(name, {"group": lambda: algo.graphs(key, program, inputs),
+                   "track": lambda: algo.track_step(*args),
+                   "map": lambda: algo.map_step(*args, algo.config.mapping_n_iters, False, algo._cur_cap())})
 
 
 def profile_splatam(pipeline, name: str = "splaTAM") -> None:
@@ -1929,6 +2048,7 @@ def main(argv) -> None:
     finally:
         hf.hashgrid_fwd = shipped_fwd
     launches = dict(res["launches"])
+    through_groups(res)
     by_n = res["hashgrid_fwd_by_n"]
     print(f"[launches] co-slam@exact hashgrid_fwd by N: {json.dumps(by_n)}")
     if sum(by_n.values()) != launches["hashgrid_fwd"] or set(by_n) != {str(n) for n in fwd_inputs}:
@@ -1936,6 +2056,8 @@ def main(argv) -> None:
                            f"launches or miss an N it was called at ({sorted(fwd_inputs)})")
     next(r for r in records if r["name"] == "hashgrid_fwd")["by_n"] = fwd_by_n(by_n, fwd_inputs)
     del fwd_inputs
+    check_group_replay(pipeline, "co-slam@exact", exact=True)
+    steady = {"co-slam@exact": [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]}
     profile_coslam(pipeline, "co-slam@exact")
     stamp("co-slam@exact run and profile")
     del pipeline
@@ -1951,17 +2073,36 @@ def main(argv) -> None:
         model = pipeline.algorithm.model
         encoding = "triplane" if model.tp_spec is not None else "packed"
         want = coslam_scatter_schedule(config or algorithm_configs["co-slam"], res["frames"], encoding)
+        through_groups(res)
         print(f"[launches] co-slam{tag}: {json.dumps(res['launches'])}; schedule scatter_add {want}")
         if res["launches"]["scatter_add"] != want:
             raise RuntimeError(f"co-slam{tag}: scatter_add launches {res['launches']['scatter_add']} != {want}")
         launches[f"scatter_add[co-slam{tag}]"] = res["launches"]["scatter_add"]
+        steady[f"co-slam{tag}"] = [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]
         if tag == "@protocol":  # before the profile's calls change the map
             protocol_row(pipeline, res["ate_rmse_cm"])
             stamp("co-slam protocol row")
+        check_group_replay(pipeline, f"co-slam{tag}", exact=False)
         profile_coslam(pipeline, f"co-slam{tag}")
         stamp(f"co-slam{tag} run and profile")
         del pipeline, model
         torch.cuda.empty_cache()
+    # the registry's default again, every frame through the per-frame path
+    # (the A/B hatch): the per-frame steady s/frame beside the group path's
+    os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
+    try:
+        pipeline, res = run_slam("co-slam", coslam_data, ("scatter_add",), bench, ATE_LIMIT_CM, tag="@packed-per-frame")
+    finally:
+        del os.environ["XRDSLAM_DISABLE_SUPER"]
+    want = coslam_scatter_schedule(algorithm_configs["co-slam"], res["frames"], "packed")
+    if res["launches"]["scatter_add"] != want or res["groups"]["groups"]:
+        raise RuntimeError(f"co-slam@packed-per-frame: {res['groups']['groups']} groups, scatter_add launches "
+                           f"{res['launches']['scatter_add']} (schedule {want})")
+    steady["co-slam@packed-per-frame"] = [res["steady_s_per_frame"], None]
+    print(f"[steady] s/frame, by the steady rule and the median group frame: {json.dumps(steady)}")
+    stamp("co-slam@packed-per-frame run")
+    del pipeline
+    torch.cuda.empty_cache()
     splatam_data = f"n_frames={SPLATAM_FRAMES},{office}"
     # SplaTAM's accuracy at full width (see SPLATAM_GATE)
     raster = ("raster_fwd", "raster_bwd", "scatter_add")

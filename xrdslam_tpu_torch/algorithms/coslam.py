@@ -1,11 +1,15 @@
-"""Co-SLAM: joint coordinate + parametric encoding SLAM, per frame on the device.
+"""Co-SLAM: joint coordinate + parametric encoding SLAM on the device.
 
-Counterpart of ``xrdslam_tpu/algorithms/coslam.py`` (its per-frame path,
-the full-image render and the mesh; the fused multi-frame super-step is not
-ported). The structure is the reference package's:
+Counterpart of ``xrdslam_tpu/algorithms/coslam.py``: the per-frame path,
+the fused group step (``super_step``, ``dispatch_superstep`` /
+``finish_superstep``), the full-image render and the mesh. The structure
+is the reference package's:
 
   * the global keyframe ray store is a fixed-capacity device table
-    ``kf_rays [max_kf, R, 7]`` (dirs, rgb, depth) with a host-side count;
+    ``kf_rays [max_kf, R, 7]`` (dirs, rgb, depth); its count is kept twice,
+    on the device (``kf_count_dev``, which the steps read: the keyframe-ray
+    draw, the current-frame pixel count, the insertion slot) and on the
+    host (``kf_count``: ``_cur_cap``, the capacity check, the mesh);
   * keyframe poses are rows of ``[max_kf, 3]`` axis-angle/translation
     tensors, gathered per ray, so mapping pose gradients arrive as
     scatter-adds;
@@ -17,13 +21,19 @@ ported). The structure is the reference package's:
     gradient.
 
 The optimization loops are Python loops of eager device work: no host
-sync inside them; a step's result reaches the host once, when the pipeline
-reads the pose.
+sync inside them, and every tensor that outlives a step is written in
+place, so a step can be captured into a CUDA graph. The group step runs
+one ``map_every``-frame group (track the head, map it, insert the
+keyframe, track the tail, each tail frame seeded on the device by the
+constant-velocity model ``_predict``) as one program: on the CPU eagerly,
+on the card as a CUDA graph captured once per ``(group, do_kf, cur_cap)``
+and replayed (``engine/graphs.py``). Its poses reach the host once per
+group.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple, Type
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
@@ -31,6 +41,7 @@ import torch
 from ..common.camera import Camera
 from ..common.frame import Frame
 from ..common.mesher import Mesher, MesherConfig
+from ..engine.graphs import GraphReplay, PendingFetch
 from ..engine.optimizers import GroupOptimizers
 from ..models.joint_encoding import JointEncoding, JointEncodingConfig
 from ..ops import lie, lie_np
@@ -75,7 +86,9 @@ class CoSLAM(Algorithm):
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
 
         self._opt_cfgs = {name: g["optimizer"] for name, g in config.optimizers.items()}
-        self.model_opt = GroupOptimizers({g: self._opt_cfgs[g] for g in MODEL_GROUPS})
+        # the map's Adam state persists across mapping calls: its step count
+        # lives on the device, so that a replayed step advances it
+        self.model_opt = GroupOptimizers({g: self._opt_cfgs[g] for g in MODEL_GROUPS}, device_count=MODEL_GROUPS)
         self.model_opt_state = self.model_opt.init(self.model.param_groups())
 
         self.num_rays_to_save = int(camera.width * camera.height * config.rays_to_save_ratio)
@@ -84,7 +97,10 @@ class CoSLAM(Algorithm):
         self.kf_pose_t = torch.zeros((self.max_kf, 3), device=self.device)
         self.kf_pose_r = torch.zeros((self.max_kf, 3), device=self.device)
         self.kf_count = 0
+        self.kf_count_dev = torch.zeros((), dtype=torch.int64, device=self.device)
         self._dirs = camera_ray_dirs(camera, self.device)  # [H, W, 3] camera-frame dirs
+        self._super_steps: Dict[Tuple[int, bool, int], Callable] = {}
+        self.graphs = GraphReplay(self.generator)
 
     def _pose(self, v: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
@@ -168,12 +184,17 @@ class CoSLAM(Algorithm):
         flat = [p for g in params for p in params[g]]
 
         kf_rays_flat = self.kf_rays.reshape(-1, 7)
-        n_kf_rays = max(self.kf_count * R, 1)
+        kf_count = self.kf_count_dev
+        n_kf_rays = torch.clamp(kf_count * R, min=1)
         # the reference samples max(mapping_sample // kf_count, min_sample_pixels)
         # current-frame pixels; the batch holds cur_cap of them, the rest masked
-        cur_n = cur_cap if first else min(max(cfg.mapping_sample // max(self.kf_count, 1), cfg.min_sample_pixels), cur_cap)
+        if first:
+            cur_n = cur_cap
+        else:
+            cur_n = torch.clamp(cfg.mapping_sample // torch.clamp(kf_count, min=1), min=cfg.min_sample_pixels,
+                                max=cur_cap)
         cur_mask = (torch.arange(cur_cap, device=self.device) < cur_n).float()
-        kf_mask = torch.full((cfg.mapping_sample,), float(self.kf_count > 0), device=self.device)
+        kf_mask = (kf_count > 0).float().expand(cfg.mapping_sample)
         for _ in range(n_iters):
             u, v = sample_pixels(cur_cap, H, W, generator=self.generator, device=self.device)
             cur_td = depth[v, u][:, None]
@@ -184,7 +205,10 @@ class CoSLAM(Algorithm):
                 loss, _ = self.model.get_loss(rays_o, rays_d, cur_ts, cur_td, cur_mask, True, True,
                                               generator=self.generator)
             else:
-                idx = torch.randint(0, n_kf_rays, (cfg.mapping_sample,), generator=self.generator, device=self.device)
+                # uniform in [0, n_kf_rays) for a count on the device: a 62-bit
+                # draw modulo the count (bias below 2^-40 at any table size)
+                idx = torch.randint(0, 2**62, (cfg.mapping_sample,), generator=self.generator,
+                                    device=self.device) % n_kf_rays
                 rays = kf_rays_flat[idx]
                 fi = idx // R
                 # the oldest keyframe's pose is fixed
@@ -203,15 +227,130 @@ class CoSLAM(Algorithm):
 
         self.model_opt_state = {g: opt_state[g] for g in MODEL_GROUPS}
         if not first:
-            self.kf_pose_r, self.kf_pose_t = kf_r.detach(), kf_t.detach()
+            # in place: a captured step writes the tensors that it read
+            self.kf_pose_r.copy_(kf_r.detach())
+            self.kf_pose_t.copy_(kf_t.detach())
         return cur_t.detach(), cur_r.detach()
 
-    def add_kf(self, rgb: torch.Tensor, depth: torch.Tensor, slot: int) -> None:
-        """Save R random rays of a frame into keyframe table row ``slot``."""
+    def add_kf(self, rgb: torch.Tensor, depth: torch.Tensor, t: torch.Tensor, r: torch.Tensor) -> None:
+        """The keyframe insertion on the device: R random rays of a frame
+        and its pose (t, r) into keyframe row ``kf_count_dev``, which then
+        advances. The host count is the caller's."""
         H, W = self.camera.height, self.camera.width
+        slot = self.kf_count_dev.reshape(1)
         idx = torch.randint(0, H * W, (self.num_rays_to_save,), generator=self.generator, device=self.device)
-        self.kf_rays[slot] = torch.cat(
-            [self._dirs.reshape(-1, 3)[idx], rgb.reshape(-1, 3)[idx], depth.reshape(-1)[idx][:, None]], -1)
+        rays = torch.cat([self._dirs.reshape(-1, 3)[idx], rgb.reshape(-1, 3)[idx], depth.reshape(-1)[idx][:, None]], -1)
+        self.kf_rays.index_copy_(0, slot, rays[None])
+        self.kf_pose_t.index_copy_(0, slot, t.reshape(1, 3))
+        self.kf_pose_r.index_copy_(0, slot, r.reshape(1, 3))
+        self.kf_count_dev.add_(1)
+
+    # ------------------------------------------------------------------
+    # the fused group step
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _predict(t1: torch.Tensor, r1: torch.Tensor, t2: torch.Tensor, r2: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The constant-velocity model on the device, from the last pose
+        (t1, r1) and the one before it: delta = P1 inv(P2), pred = delta P1.
+        Unlike the host's ``predict_current_pose`` it takes no SVD and no
+        finite check, as the reference package's group program."""
+        R1 = lie.axis_angle_to_matrix(r1)
+        R2 = lie.axis_angle_to_matrix(r2)
+        dR = R1 @ R2.T
+        dt = t1 - dR @ t2
+        return dR @ t1 + dt, lie.matrix_to_axis_angle(dR @ R1)
+
+    def super_step(self, rgbs: Sequence[torch.Tensor], depths: Sequence[torch.Tensor], prev_t: torch.Tensor,
+                   prev_r: torch.Tensor, prev2_t: torch.Tensor, prev2_r: torch.Tensor, do_kf: bool, cur_cap: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One group of ``len(rgbs)`` frames, all on the device: track the
+        head from the prediction of (prev, prev2), map it, insert it as a
+        keyframe when ``do_kf``, then track each tail frame from the
+        prediction of the two poses before it. Returns the group's poses
+        (t [G, 3], r [G, 3]; the head's as mapped) and its best tracking
+        losses [G]. The host's keyframe count is the caller's."""
+        cfg = self.config
+        bt, br, loss = self.track_step(rgbs[0], depths[0], *self._predict(prev_t, prev_r, prev2_t, prev2_r))
+        cur_t, cur_r = self.map_step(rgbs[0], depths[0], bt, br, cfg.mapping_n_iters, False, cur_cap)
+        if do_kf:
+            self.add_kf(rgbs[0], depths[0], cur_t, cur_r)
+        ts, rs, losses = [cur_t], [cur_r], [loss]
+        last, before = (cur_t, cur_r), (prev_t, prev_r)
+        for rgb, depth in zip(rgbs[1:], depths[1:]):
+            bt, br, loss = self.track_step(rgb, depth, *self._predict(*last, *before))
+            ts.append(bt)
+            rs.append(br)
+            losses.append(loss)
+            last, before = (bt, br), last
+        return torch.stack(ts), torch.stack(rs), torch.stack(losses)
+
+    def _get_super_step(self, group: int, do_kf: bool) -> Tuple[Tuple[int, bool, int], Callable]:
+        """The group program for the current ``_cur_cap`` and its key
+        ``(group, do_kf, cur_cap)``, as the reference package keys its
+        compiled programs; it takes the flat inputs (the G images, the G
+        depths, prev t, r, prev2 t, r)."""
+        key = (group, do_kf, self._cur_cap())
+        if key not in self._super_steps:
+            cur_cap = key[2]
+
+            def program(*x: torch.Tensor):
+                return self.super_step(x[:group], x[group:2 * group], *x[2 * group:], do_kf=do_kf, cur_cap=cur_cap)
+
+            self._super_steps[key] = program
+        return key, self._super_steps[key]
+
+    def dispatch_superstep(self, frames: List[Frame], do_kf: bool, prev_c2w: Optional[np.ndarray] = None,
+                           prev2_c2w: Optional[np.ndarray] = None,
+                           prev_tr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                           prev2_tr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """Launch the group program on ``frames`` (``frames[0]`` is the head,
+        which is mapped); requires ``is_initialized()``. The predecessor
+        poses come as host matrices (``prev_c2w``, ``prev2_c2w``) or, so
+        that a dispatch waits for nothing, as the device (t, r) pairs of
+        the previous group's output (``prev_tr``, ``prev2_tr``). Returns
+        the handle for ``finish_superstep``: the group's device poses (t
+        [G, 3], r [G, 3]) and their copy to the host, under way."""
+        if do_kf and self.kf_count >= self.max_kf:
+            raise RuntimeError(f"keyframe capacity {self.max_kf} exceeded; raise max_keyframes")
+        if prev_tr is None:
+            prev_tr, prev2_tr = (tuple(self._pose(v) for v in lie_np.matrix_to_pose_vec(
+                np.asarray(c2w, np.float32), rot_rep="axis_angle")) for c2w in (prev_c2w, prev2_c2w))
+        key, program = self._get_super_step(len(frames), do_kf)
+        inputs = ([f.rgb_dev(self.device) for f in frames] + [f.depth_dev(self.device) for f in frames]
+                  + [*prev_tr, *prev2_tr])
+        poses_t, poses_r, _ = self.graphs(key, program, inputs)
+        if do_kf:
+            self.kf_count += 1
+            self.keyframe_fids.append(frames[0].fid)
+        return poses_t, poses_r, PendingFetch(poses_t, poses_r)
+
+    def finish_superstep(self, handle) -> List[np.ndarray]:
+        """One pose fetch for the whole group -> its c2w matrices."""
+        pt, pr = handle[2].wait()
+        return [lie_np.pose_vec_to_matrix(pt[j], pr[j], rot_rep="axis_angle") for j in range(pt.shape[0])]
+
+    def save_state(self):
+        """A copy of everything a group step changes on the device: the map
+        and its Adam state, the keyframe table, poses and count, and the
+        generator's state."""
+        return [t.detach().clone() for t in self._state_tensors()], self.generator.get_state()
+
+    def load_state(self, saved) -> None:
+        """Put back a ``save_state`` copy, in place."""
+        tensors, gen = saved
+        with torch.no_grad():
+            for dst, src in zip(self._state_tensors(), tensors):
+                dst.copy_(src)
+        self.generator.set_state(gen)
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        out = [p for ps in self.model.param_groups().values() for p in ps]
+        for st in self.model_opt_state.values():
+            for k in sorted(st):
+                v = st[k]
+                out.extend(v if isinstance(v, list) else [v])
+        return out + [self.kf_rays, self.kf_pose_t, self.kf_pose_r, self.kf_count_dev]
 
     # ------------------------------------------------------------------
     # host API (called by the pipeline)
@@ -244,10 +383,8 @@ class CoSLAM(Algorithm):
     def add_keyframe(self, keyframe: Frame) -> None:
         if self.kf_count >= self.max_kf:
             raise RuntimeError(f"keyframe capacity {self.max_kf} exceeded; raise max_keyframes")
-        slot = self.kf_count
-        self.add_kf(keyframe.rgb_dev(self.device), keyframe.depth_dev(self.device), slot)
-        self.kf_pose_t[slot] = self._pose(keyframe.t)
-        self.kf_pose_r[slot] = self._pose(keyframe.r)
+        self.add_kf(keyframe.rgb_dev(self.device), keyframe.depth_dev(self.device), self._pose(keyframe.t),
+                    self._pose(keyframe.r))
         self.kf_count += 1
         self.keyframe_fids.append(keyframe.fid)
 

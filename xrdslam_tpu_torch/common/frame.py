@@ -2,7 +2,10 @@
 
 Counterpart of ``xrdslam_tpu/common/frame.py``. The pose is a host (t, r)
 numpy pair; the trainable copy lives inside the tracking/mapping steps.
-``rgb_dev`` / ``depth_dev`` give the images as device tensors, cached.
+``rgb_dev`` / ``depth_dev`` give the images as device tensors, cached; to
+a card they go up through pinned host memory without a wait
+(``non_blocking``), so that the pipeline can upload the next frames while
+the card works.
 """
 from __future__ import annotations
 
@@ -12,6 +15,16 @@ import numpy as np
 import torch
 
 from ..ops import lie_np as lie
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: to a card from pinned memory, enqueued on
+    the current stream (the caching host allocator keeps the pinned buffer
+    until the copy is done)."""
+    t = torch.from_numpy(a)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class Frame:
@@ -41,12 +54,12 @@ class Frame:
         ones) so that both packages see the same pixel values."""
         if self._rgb_dev is None:
             q = (np.clip(self.rgb, 0.0, 1.0) * 65535.0 + 0.5).astype(np.uint16)
-            self._rgb_dev = torch.from_numpy(q.astype(np.float32) / np.float32(65535.0)).to(device)
+            self._rgb_dev = _upload(q.astype(np.float32) / np.float32(65535.0), device)
         return self._rgb_dev
 
     def depth_dev(self, device: torch.device) -> torch.Tensor:
         if self._depth_dev is None:
-            self._depth_dev = torch.from_numpy(np.ascontiguousarray(self.depth, np.float32)).to(device)
+            self._depth_dev = _upload(np.ascontiguousarray(self.depth, np.float32), device)
         return self._depth_dev
 
     def set_pose(self, c2w: np.ndarray, check: bool = False) -> None:

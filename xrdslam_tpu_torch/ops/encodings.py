@@ -14,11 +14,24 @@ TPU kernels instead.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 PRIMES = (1, 2654435761, 805459861)
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def constant(values: tuple, dtype: Optional[torch.dtype], device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made at the
+    first call with these arguments and kept. A copy from the host cannot
+    be captured into a CUDA graph, so the steps that a graph replays read
+    their constant tables through this; the first call comes in the eager
+    run before a capture. The tensor is shared: never write to it."""
+    key = (tuple(values), dtype, torch.device(device))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return _CONSTANTS[key]
 # corner c = (cx, cy, cz) in the reference order: cx slowest, cz fastest
 CORNER_OFFSETS = tuple((i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1))
 

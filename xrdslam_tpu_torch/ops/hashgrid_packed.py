@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .encodings import PRIMES, HashGridSpec
+from .encodings import PRIMES, HashGridSpec, constant
 from .scatter import scatter_add
 
 
@@ -74,7 +74,7 @@ def _cells(xc: torch.Tensor, spec: HashGridSpec) -> Tuple[torch.Tensor, torch.Te
     """Clamped x [N, 3] -> (row ids [N, L] int64, frac [N, L, 3]). Dense rows index cells (x R^2 + y R + z);
     hash rows hash the base cell with the XOR primes, in int64, whose low
     bits equal the reference's wrapping uint32 products."""
-    res = torch.tensor(spec.resolutions, dtype=xc.dtype, device=xc.device)
+    res = constant(spec.resolutions, xc.dtype, xc.device)
     res_i = res.to(torch.int64)
     pos = xc[:, None, :] * res[None, :, None]  # [N, L, 3]
     ix0 = torch.minimum(torch.clamp(torch.floor(pos).to(torch.int64), min=0), res_i[None, :, None] - 1)
@@ -82,7 +82,7 @@ def _cells(xc: torch.Tensor, spec: HashGridSpec) -> Tuple[torch.Tensor, torch.Te
     dense_rows = (ix0[..., 0] * res_i + ix0[..., 1]) * res_i + ix0[..., 2]
     hash_rows = ((ix0[..., 0] * PRIMES[0]) ^ (ix0[..., 1] * PRIMES[1]) ^ (ix0[..., 2] * PRIMES[2])) & (
         spec.table_size - 1)
-    dense = torch.tensor(spec.dense, device=xc.device)
+    dense = constant(spec.dense, None, xc.device)
     return torch.where(dense[None, :], dense_rows, hash_rows), frac
 
 
@@ -105,7 +105,7 @@ def stacked_rows(rid: torch.Tensor, n_rows: Sequence[int]) -> Tuple[torch.Tensor
     offsets = [0]
     for rows in n_rows:
         offsets.append(offsets[-1] + rows)
-    first = torch.tensor(offsets[:-1], dtype=rid.dtype, device=rid.device)
+    first = constant(offsets[:-1], rid.dtype, rid.device)
     return (rid + first).to(torch.int32).reshape(-1), offsets
 
 
@@ -152,7 +152,7 @@ class _GatherLerp(torch.autograd.Function):
             dfx = torch.sum((g8[:, :, 1] - g8[:, :, 0]) * wy[..., :, None] * wz[..., None, :], (-2, -1))
             dfy = torch.sum((g8[:, :, :, 1] - g8[:, :, :, 0]) * wx[..., :, None] * wz[..., None, :], (-2, -1))
             dfz = torch.sum((g8[..., 1] - g8[..., 0]) * wx[..., :, None] * wy[..., None, :], (-2, -1))
-            res = torch.tensor(spec.resolutions, dtype=x.dtype, device=x.device)
+            res = constant(spec.resolutions, x.dtype, x.device)
             in_range = ((x > 0.0) & (x < 1.0)).to(x.dtype)
             dx = torch.sum(torch.stack([dfx, dfy, dfz], -1) * res[None, :, None], 1) * in_range
         return (None, dx, *d_packed)

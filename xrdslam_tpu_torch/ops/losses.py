@@ -42,7 +42,7 @@ def sdf_losses(z_vals: torch.Tensor, target_d: torch.Tensor, predicted_sdf: torc
     front_mask, sdf_mask, fs_weight, sdf_weight = sdf_masks(z_vals, target_d, truncation, ray_mask)
     n, s = z_vals.shape
     if ray_mask is None:
-        denom = torch.tensor(float(n * s), dtype=z_vals.dtype, device=z_vals.device)
+        denom = z_vals.new_full((), float(n * s))
     else:
         denom = torch.clamp(torch.sum(ray_mask) * s, min=1.0)
     fs_loss = torch.sum(front_mask * (predicted_sdf - 1.0) ** 2) / denom * fs_weight
