@@ -64,9 +64,21 @@
    again with ``XRDSLAM_DISABLE_SUPER=1`` (every frame per frame, gated
    the same), and a ``[steady]`` line with the four runs' steady s/frame;
    SplaTAM on the office at 600x340 for 20 frames with the registry's
-   settings but 512 slots per tile (gated); SplaTAM's main path,
-   the same with the registry's settings (256 slots per tile; ATE
-   reported: see ``SPLATAM_GATE``); and Point-SLAM's main path, the
+   settings but 512 slots per tile (gated), through the group path
+   (frames 2-18, each one CUDA graph replay of the fused step, keyed
+   ``(do_kf, densify)``), with its ``[graph]`` line (the replay against
+   two eager frames from one saved state: their bits, or, where the eager
+   frames differ, within ``SPLATAM_GRAPH_SPREAD`` times their distance)
+   and an ``[order]`` line (the device time of a mapping call's K4
+   orderings built up front for the window against one per iteration);
+   the same run per frame (``XRDSLAM_DISABLE_SUPER=1``, gated); SplaTAM's
+   main path, the registry's settings (256 slots per tile; ATE reported:
+   see ``SPLATAM_GATE``), through groups; a short densification run
+   (``DENSIFY``, 6 frames, 3 through groups; ``[densify]``: its last group
+   step with and without densification from one state, the count must grow
+   inside the mapping program, the table stay finite); each SplaTAM run's
+   K5/K6/K4 launches equal to ``splatam_schedule``; ``[steady]`` gives
+   SplaTAM's s/frame by both paths; and Point-SLAM's main path, the
    registry's settings on the office at 600x340 for 12 frames (gated; K7
    and K4 launches equal to the schedule's). A gated run's ATE must be at most
    10 cm and at most half that of a camera frozen at frame 0
@@ -74,8 +86,8 @@
    each main path launched (the launch counts are zeroed just before each
    run and read just after).
 5. Profiles one tracking and one mapping call of each run on a main path
-   (of a Co-SLAM run also one replay of its last group's graph) and of
-   SplaTAM's K = 512 run with torch.profiler
+   (of a Co-SLAM or SplaTAM run also one replay of its last group's graph)
+   and of SplaTAM's K = 512 run with torch.profiler
    (Point-SLAM's mapping call with 30 iterations): wall time, device busy
    time and the kernels that take it. ``[elapsed]`` lines stamp the
    phases.
@@ -198,6 +210,26 @@ FROZEN_ATE_SHARE = 0.5
 # rad), best losses (relative) and keyframe rows are held to this; the
 # packed hash and the tri-plane to the same bits.
 GRAPH_EXACT_TOL = 1e-4
+# SplaTAM's replay ([graph] splaTAM@k512): the eager frame's bits where two
+# eager frames give the same bits; where they differ (cuDNN's SSIM backward
+# may sum in another order in each call), the replay's distance from the
+# first eager frame may be at most this many times the eager frames' own
+SPLATAM_GRAPH_SPREAD = 4.0
+# SplaTAM with densification on: a short run through groups (frames 2-4).
+# The registry's mapping_densify_dict starts at iteration 500 and never
+# fires within a 60-iteration mapping call; this run keeps its thresholds
+# and scales its schedule to the call: one densification, at iteration 30.
+# At 600x340 and K = 512 that clones 16-24% of the gaussians (their mean
+# screen gradient reaches grad_thresh; all are small) and growth adds
+# 40,000-70,000 a frame after the first's 204,000, so the map passes a
+# million rows by frame 5: the run has room for 2,097,152
+DENSIFY_FRAMES = 6
+DENSIFY = {"algorithm.mapping_use_gaussian_splatting_densification": True,
+           "algorithm.model.max_gaussians": 2_097_152,
+           "algorithm.model.mapping_densify_dict": dict(
+               start_after=30, remove_big_after=3000, stop_after=30, densify_every=30, grad_thresh=0.0002,
+               num_to_split_into=2, removal_opacity_threshold=0.005, final_removal_opacity_threshold=0.005,
+               reset_opacities_every=3000)}
 FWD_ATOL = 1e-5
 BWD_RTOL = 1e-4  # of max |twin|: sums in another order (fp32 atomics in K2-K4)
 # NVIDIA H100 SXM, published peaks (data sheet): HBM rate and float32 rate
@@ -1415,6 +1447,89 @@ def pointslam_schedule(cfg, n_frames: int):
             "scatter_add": sum(g + 2 * (it - g) for g, it in zip(geo, iters))}
 
 
+def splatam_schedule(algo_cfg, n_frames: int) -> dict:
+    """K5, K6 and K4 launches of a SplaTAM run that maps every frame and
+    tracks every frame after the first: one K6 and one K4 (the raster's
+    backward) per tracking and mapping iteration; one K5 per iteration and
+    per growth render (each mapped frame after the first)."""
+    a = algo_cfg
+    bwd = a.mapping_first_n_iters + (n_frames - 1) * (a.tracking_n_iters + a.mapping_n_iters)
+    return {"raster_fwd": bwd + n_frames - 1, "raster_bwd": bwd, "scatter_add": bwd}
+
+
+def check_splatam_run(pipeline, res: dict, groups: bool) -> None:
+    """A SplaTAM run's K5/K6/K4 launches against ``splatam_schedule`` and its
+    path: through groups (``through_groups``) or, per frame, none."""
+    want = splatam_schedule(pipeline.algorithm.config, res["frames"])
+    print(f"[launches] {res['run']}: {json.dumps(res['launches'])}; schedule {json.dumps(want)}")
+    if res["launches"] != want:
+        raise RuntimeError(f"{res['run']}: launches {res['launches']} differ from the schedule {want}")
+    if groups:
+        through_groups(res)
+    elif res["groups"]["groups"]:
+        raise RuntimeError(f"{res['run']}: {res['groups']['groups']} groups on the per-frame path")
+
+
+def order_choice(pipeline) -> None:
+    """``[order]``: the device time of a mapping call's K4 orderings, built
+    as the port builds them (one per window frame, up front, each
+    iteration's selected by its pick) against one built each iteration
+    from the picked frame's tiles, on the run's last window and picks."""
+    import torch
+
+    from xrdslam_tpu_torch.ops.gaussian_raster import Binning, WindowBinning
+    from xrdslam_tpu_torch.ops import lie
+
+    algo = pipeline.algorithm
+    _, _, inputs = group_inputs(pipeline)
+    rgb, depth, win_slots, n_valid, picks = inputs[:5]
+    w2c = lie.pose_inverse(torch.as_tensor(np.asarray(algo.estimate_c2w_list[-1], np.float32), device=algo.device))
+    _, w2cs = algo.window(rgb, depth, w2c, win_slots, n_valid)
+    tiles, masks = algo.bin_window(algo.params, algo.dead, algo.count_dev, w2cs)
+    G = algo.config.model.max_gaussians
+
+    def up_front():
+        window = WindowBinning(tiles, masks, G)
+        for i in range(picks.shape[0]):
+            window.pick(picks[i:i + 1])
+
+    def per_iteration():
+        for i in range(picks.shape[0]):
+            fi = picks[i:i + 1]
+            Binning(torch.index_select(tiles, 0, fi)[0], torch.index_select(masks, 0, fi)[0]).order(G)
+
+    a, b = device_ms(up_front, reps=3), device_ms(per_iteration, reps=3)
+    print(f"[order] a mapping call's K4 orderings, device ms: up front ({tiles.shape[0]} window frames, "
+          f"{picks.shape[0]} picks) {a:.4f}; per iteration ({picks.shape[0]} orderings) {b:.4f}")
+
+
+def densify_check(pipeline) -> None:
+    """``[densify]``: from the run's final state, its last group program
+    with densification and the same program without, each eagerly from the
+    same saved state: clones and splits must grow the count inside the
+    mapping program, the table must stay finite. The state is put back
+    after."""
+    import torch
+
+    from xrdslam_tpu_torch.models.gaussian_splatting import GAUSS_GROUPS
+
+    algo = pipeline.algorithm
+    key, program, inputs = group_inputs(pipeline)
+    saved = algo.save_state()
+    counts = {}
+    for densify in (True, False):
+        algo.load_state(saved)
+        _, _, count = algo.fused_step(*inputs, do_kf=key[0], densify=densify)
+        counts[densify] = int(count)
+        if not all(bool(torch.isfinite(algo.params[g][:counts[densify]]).all()) for g in GAUSS_GROUPS):
+            raise RuntimeError(f"splaTAM@densify: non-finite gaussians (densify={densify})")
+    algo.load_state(saved)
+    print(f"[densify] one group step from the run's final state ({int(saved[0][-1])} gaussians): "
+          f"{counts[True]} with densification, {counts[False]} without")
+    if counts[True] <= counts[False]:
+        raise RuntimeError(f"splaTAM@densify: densification added no gaussians ({counts})")
+
+
 def coslam_scatter_schedule(cfg, n_frames: int, encoding: str) -> int:
     """K4 launches of a Co-SLAM run whose frames are mapped every
     ``map_every`` and on the last frame: the packed hash scatters its tables'
@@ -1542,36 +1657,39 @@ def groups_report(pipeline, name: str) -> dict:
 
 
 def through_groups(res: dict) -> None:
-    """A gated Co-SLAM run must have taken the group path, every group after
-    its first with a key replayed."""
+    """A run must have taken the group path, every group after its key's
+    first replayed."""
     g = res["groups"]
     if not g["groups"] or sum(g["replays"].values()) + len(g["captures"]) != g["groups"]:
         raise RuntimeError(f"{res['run']}: the group path did not carry the run: {g}")
 
 
 def group_inputs(pipeline):
-    """The run's last captured group program, its key and inputs: the last
-    ``map_every`` frames, seeded from the two estimated poses before them."""
+    """A group program of the run with a captured key, its key and inputs:
+    the last ``map_every`` frames, seeded from the two estimated poses
+    before them, as ``group_call`` builds them (with a keyframe, else
+    without)."""
     from xrdslam_tpu_torch.common.frame import Frame
-    from xrdslam_tpu_torch.ops import lie_np
 
     algo, G = pipeline.algorithm, pipeline.config.tracker.map_every
     n = len(pipeline.dataset)
-    key = list(algo.graphs.captures)[-1]
-    frames = [Frame(fid=j, rgb=pipeline.dataset[j][1], depth=pipeline.dataset[j][2]) for j in range(n - G, n)]
+    frames = [Frame(fid=j, rgb=pipeline.dataset[j][1], depth=pipeline.dataset[j][2], rot_rep=algo.config.rot_rep)
+              for j in range(n - G, n)]
     est = algo.estimate_c2w_list
-    prev = [algo._pose(v) for c2w in (est[n - G - 1], est[n - G - 2])
-            for v in lie_np.matrix_to_pose_vec(np.asarray(c2w, np.float32), rot_rep="axis_angle")]
-    inputs = [f.rgb_dev(algo.device) for f in frames] + [f.depth_dev(algo.device) for f in frames] + prev
-    return key, algo._super_steps[key], inputs
+    for do_kf in (True, False):
+        key, program, inputs = algo.group_call(frames, do_kf, est[n - G - 1], est[n - G - 2])
+        if key in algo.graphs.captures:
+            return key, program, inputs
+    raise RuntimeError(f"no captured key among {list(algo.graphs.captures)} fits the run's last group")
 
 
-def check_group_replay(pipeline, name: str, exact: bool) -> None:
+def check_group_replay(pipeline, name: str, exact: bool, spread: bool = False) -> None:
     """``[graph]``: from one saved state and generator state, the group
     program eagerly twice and its captured graph replayed once. The replay
     must give the eager run's bits (the exact hash: within
-    ``GRAPH_EXACT_TOL``), and launch what the eager group launched. The
-    state is put back after."""
+    ``GRAPH_EXACT_TOL``; with ``spread``, where the two eager runs differ,
+    within ``SPLATAM_GRAPH_SPREAD`` times their distance), and launch what
+    the eager group launched. The state is put back after."""
     import torch
 
     from xrdslam_tpu_torch.ops import hashgrid_fast as hf
@@ -1608,6 +1726,11 @@ def check_group_replay(pipeline, name: str, exact: bool) -> None:
     if exact:
         if max(replay["poses_losses"], replay["keyframe_rows"]) > GRAPH_EXACT_TOL:
             raise RuntimeError(f"{name}: the replay is {replay} from the eager group (tolerance {GRAPH_EXACT_TOL})")
+    elif spread and not eager2["same_bits"]:
+        over = [k for k in ("poses_losses", "keyframe_rows", "state") if replay[k] > SPLATAM_GRAPH_SPREAD * eager2[k]]
+        if over:
+            raise RuntimeError(f"{name}: the replay is {replay} from the eager group, beyond {SPLATAM_GRAPH_SPREAD} x "
+                               f"the eager groups' own {eager2} in {over}")
     elif not replay["same_bits"]:
         raise RuntimeError(f"{name}: the replay's bits differ from the eager group's: {replay}")
 
@@ -1746,12 +1869,15 @@ def profile_coslam(pipeline, name: str = "co-slam") -> None:
 
 
 def profile_splatam(pipeline, name: str = "splaTAM") -> None:
-    """One tracking call (binning + 40 iterations) and one mapping call
-    (growth, window binning, 60 iterations) on the last frame, as the
-    pipeline makes them; the mapping calls update the finished run's map."""
+    """One replay of a captured frame program (``group_inputs``), then one
+    tracking call (binning + 40 iterations) and one mapping call (growth,
+    window binning, 60 iterations) on the last frame, as the per-frame
+    path makes them; they update the finished run's map."""
     algo = pipeline.algorithm
+    key, program, inputs = group_inputs(pipeline)
     fr = last_frame(pipeline)
-    profile(name, {"track": lambda: algo.finish_tracking(algo.dispatch_tracking(fr)),
+    profile(name, {"group": lambda: algo.graphs(key, program, inputs),
+                   "track": lambda: algo.finish_tracking(algo.dispatch_tracking(fr)),
                    "map": lambda: algo.do_mapping(fr)})
 
 
@@ -2104,20 +2230,51 @@ def main(argv) -> None:
     del pipeline
     torch.cuda.empty_cache()
     splatam_data = f"n_frames={SPLATAM_FRAMES},{office}"
-    # SplaTAM's accuracy at full width (see SPLATAM_GATE)
+    # SplaTAM's accuracy at full width (see SPLATAM_GATE), through the group
+    # path (frames 2-18, one CUDA graph replay a frame)
     raster = ("raster_fwd", "raster_bwd", "scatter_add")
     pipeline, res = run_slam("splaTAM", splatam_data, raster, overrides=SPLATAM_GATE, ate_limit_cm=ATE_LIMIT_CM,
                              tag="@k512")
+    check_splatam_run(pipeline, res, groups=True)
     launches.update({f"{name}[k512]": n for name, n in res["launches"].items()})
+    steady = {"splaTAM@k512": [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]}
+    check_group_replay(pipeline, "splaTAM@k512", exact=False, spread=True)
+    order_choice(pipeline)
     profile_splatam(pipeline, "splaTAM@k512")
-    stamp("splaTAM@k512 run and profile")
+    stamp("splaTAM@k512 run, replay check and profile")
+    del pipeline
+    torch.cuda.empty_cache()
+    # the same, every frame through the per-frame path (the A/B hatch)
+    os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
+    try:
+        pipeline, res = run_slam("splaTAM", splatam_data, raster, overrides=SPLATAM_GATE, ate_limit_cm=ATE_LIMIT_CM,
+                                 tag="@k512-per-frame")
+    finally:
+        del os.environ["XRDSLAM_DISABLE_SUPER"]
+    check_splatam_run(pipeline, res, groups=False)
+    steady["splaTAM@k512-per-frame"] = [res["steady_s_per_frame"], None]
+    stamp("splaTAM@k512-per-frame run")
     del pipeline
     torch.cuda.empty_cache()
     # the main path: full width, registry settings (ATE reported, not gated)
     pipeline, res = run_slam("splaTAM", splatam_data, raster)
+    check_splatam_run(pipeline, res, groups=True)
     launches.update(res["launches"])
+    steady["splaTAM"] = [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]
     profile_splatam(pipeline)
     stamp("splaTAM run and profile")
+    del pipeline
+    torch.cuda.empty_cache()
+    # clone/split densification through groups (see DENSIFY): finite, and
+    # the count grows inside the mapping program
+    pipeline, res = run_slam("splaTAM", f"n_frames={DENSIFY_FRAMES},{office}", raster,
+                             overrides={**SPLATAM_GATE, **DENSIFY}, tag="@densify")
+    check_splatam_run(pipeline, res, groups=True)
+    if not np.isfinite(res["ate_rmse_cm"]):
+        raise RuntimeError(f"splaTAM@densify: ATE {res['ate_rmse_cm']}")
+    densify_check(pipeline)
+    print(f"[steady] SplaTAM s/frame, by the steady rule and the median group frame: {json.dumps(steady)}")
+    stamp("splaTAM@densify run")
     del pipeline
     torch.cuda.empty_cache()
     # Point-SLAM's main path: full width, registry settings

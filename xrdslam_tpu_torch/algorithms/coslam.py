@@ -300,6 +300,21 @@ class CoSLAM(Algorithm):
             self._super_steps[key] = program
         return key, self._super_steps[key]
 
+    def group_call(self, frames: List[Frame], do_kf: bool, prev_c2w: Optional[np.ndarray] = None,
+                   prev2_c2w: Optional[np.ndarray] = None,
+                   prev_tr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   prev2_tr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> Tuple[Tuple[int, bool, int], Callable, List[torch.Tensor]]:
+        """The group program on ``frames``, its key and its inputs (the G
+        images, the G depths, the predecessor poses as device (t, r))."""
+        if prev_tr is None:
+            prev_tr, prev2_tr = (tuple(self._pose(v) for v in lie_np.matrix_to_pose_vec(
+                np.asarray(c2w, np.float32), rot_rep="axis_angle")) for c2w in (prev_c2w, prev2_c2w))
+        key, program = self._get_super_step(len(frames), do_kf)
+        inputs = ([f.rgb_dev(self.device) for f in frames] + [f.depth_dev(self.device) for f in frames]
+                  + [*prev_tr, *prev2_tr])
+        return key, program, inputs
+
     def dispatch_superstep(self, frames: List[Frame], do_kf: bool, prev_c2w: Optional[np.ndarray] = None,
                            prev2_c2w: Optional[np.ndarray] = None,
                            prev_tr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -313,12 +328,7 @@ class CoSLAM(Algorithm):
         [G, 3], r [G, 3]) and their copy to the host, under way."""
         if do_kf and self.kf_count >= self.max_kf:
             raise RuntimeError(f"keyframe capacity {self.max_kf} exceeded; raise max_keyframes")
-        if prev_tr is None:
-            prev_tr, prev2_tr = (tuple(self._pose(v) for v in lie_np.matrix_to_pose_vec(
-                np.asarray(c2w, np.float32), rot_rep="axis_angle")) for c2w in (prev_c2w, prev2_c2w))
-        key, program = self._get_super_step(len(frames), do_kf)
-        inputs = ([f.rgb_dev(self.device) for f in frames] + [f.depth_dev(self.device) for f in frames]
-                  + [*prev_tr, *prev2_tr])
+        key, program, inputs = self.group_call(frames, do_kf, prev_c2w, prev2_c2w, prev_tr, prev2_tr)
         poses_t, poses_r, _ = self.graphs(key, program, inputs)
         if do_kf:
             self.kf_count += 1

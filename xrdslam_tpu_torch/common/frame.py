@@ -17,7 +17,7 @@ import torch
 from ..ops import lie_np as lie
 
 
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``: to a card from pinned memory, enqueued on
     the current stream (the caching host allocator keeps the pinned buffer
     until the copy is done)."""
@@ -54,12 +54,12 @@ class Frame:
         ones) so that both packages see the same pixel values."""
         if self._rgb_dev is None:
             q = (np.clip(self.rgb, 0.0, 1.0) * 65535.0 + 0.5).astype(np.uint16)
-            self._rgb_dev = _upload(q.astype(np.float32) / np.float32(65535.0), device)
+            self._rgb_dev = upload(q.astype(np.float32) / np.float32(65535.0), device)
         return self._rgb_dev
 
     def depth_dev(self, device: torch.device) -> torch.Tensor:
         if self._depth_dev is None:
-            self._depth_dev = _upload(np.ascontiguousarray(self.depth, np.float32), device)
+            self._depth_dev = upload(np.ascontiguousarray(self.depth, np.float32), device)
         return self._depth_dev
 
     def set_pose(self, c2w: np.ndarray, check: bool = False) -> None:

@@ -2,25 +2,30 @@
 
 Counterpart of ``xrdslam_tpu/models/gaussian_splatting.py``. The gaussian
 cloud is a fixed-capacity table ``[max_gaussians, ...]`` of plain tensors
-(``init_params``) with a host count and a ``dead`` mask: growth appends
-rows at call boundaries, pruning flips ``dead`` instead of compacting.
-Both reference rasterizer passes (rgb, then depth + silhouette + depth^2)
-are one 8-channel pass of ``ops.gaussian_raster.rasterize``. The losses are
+(``init_params``) with a count and a ``dead`` mask: growth and
+densification append rows, pruning flips ``dead`` instead of compacting.
+The count may be a host int or a device tensor (the group step keeps it on
+the device), and every table operation here takes either. Both reference
+rasterizer passes (rgb, then depth + silhouette + depth^2) are one
+8-channel pass of ``ops.gaussian_raster.rasterize``. The losses are
 sil-masked L1 sums for tracking, and 0.8 L1 + 0.2 (1 - SSIM) + mean depth
 L1 for mapping.
 
-Clone/split densification (``append_rows`` and the screen-space gradient
-signal) is not ported; the registry ships it off.
+Clone/split densification: ``render(..., duv=)`` adds a zero screen offset
+whose gradient is the per-gaussian screen-space signal, and
+``append_rows`` appends copies of chosen rows (a clone, or a split's
+jittered, shrunk copies) at the count without a host sync.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Type
+from typing import Any, Dict, Optional, Tuple, Type
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import lie
 from ..ops.gaussian_raster import N_CH, Binning, rasterize_binned
 from .base import Model, ModelConfig
 
@@ -55,8 +60,8 @@ class GaussianSplattingConfig(ModelConfig):
         reset_opacities=False,
         reset_opacities_every=500,
     ))
-    # the clone/split densification schedule, for densification (not
-    # ported; turning it on raises)
+    # the clone/split densification schedule, in mapping iterations (the
+    # reference's; it never fires within a 60-iteration mapping call)
     mapping_densify_dict: Dict[str, Any] = field(default_factory=lambda: dict(
         start_after=500,
         remove_big_after=3000,
@@ -126,12 +131,17 @@ class GaussianSplatting(Model):
         return u, v, depth, sigma
 
     def render(self, params: Dict[str, torch.Tensor], alive: torch.Tensor, w2c: torch.Tensor,
-               binning, ntx: int, nty: int) -> Dict[str, torch.Tensor]:
+               binning, ntx: int, nty: int, duv: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Single-pass 8-channel rasterization -> rgb/depth/sil/depth_sq.
         ``binning``: a ``Binning`` (kept over several renders) or a (tile
-        ids, tile mask) pair."""
+        ids, tile mask) pair. ``duv`` [G, 2]: a zero screen offset whose
+        gradient is each gaussian's screen-space gradient (densification's
+        signal)."""
         cam = self.camera
         u, v, depth, sigma = self.project(params, w2c)
+        if duv is not None:
+            u = u + duv[:, 0]
+            v = v + duv[:, 1]
         opacity = torch.sigmoid(params["logit_opacities"][:, 0]) * alive
         ch = torch.cat([
             params["rgb_colors"],
@@ -163,17 +173,17 @@ class GaussianSplatting(Model):
         return c.mapping_depth_weight * depth_loss + c.mapping_rgb_weight * rgb_loss
 
     # ------------------------------------------------------------------
-    # growth / pruning at call boundaries
+    # the table: liveness, pruning, appended rows
     # ------------------------------------------------------------------
-    def alive_mask(self, dead: torch.Tensor, count: int) -> torch.Tensor:
+    def alive_mask(self, dead: torch.Tensor, count) -> torch.Tensor:
         """Row liveness as float: allocated and not pruned."""
         idx = torch.arange(self.config.max_gaussians, device=dead.device)
         return ((idx < count) & ~dead).float()
 
     @torch.no_grad()
-    def prune_step(self, params: Dict[str, torch.Tensor], dead: torch.Tensor, count: int, it: int):
-        """Apply the prune schedule at mapping iteration ``it``. Returns
-        (dead, did_prune)."""
+    def prune_step(self, params: Dict[str, torch.Tensor], dead: torch.Tensor, count, it: int):
+        """Apply the prune schedule at mapping iteration ``it`` (a host int:
+        the mapping loop is unrolled). Returns (dead, did_prune)."""
         d = self.config.mapping_pruning_dict
         if not (d["start_after"] <= it <= d["stop_after"] and it % max(d["prune_every"], 1) == 0):
             return dead, False
@@ -188,3 +198,38 @@ class GaussianSplatting(Model):
     def reset_opacities_value() -> float:
         """inverse_sigmoid(0.01)."""
         return float(np.log(0.01 / 0.99))
+
+    @torch.no_grad()
+    def append_rows(self, params: Dict[str, torch.Tensor], dead: torch.Tensor, count: torch.Tensor,
+                    mask: torch.Tensor, repeat: int = 1, scale_div: Optional[float] = None,
+                    noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None
+                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+        """Append ``repeat`` copies of each row of ``mask`` [G] at rows
+        [count, ...), in row order, as many as fit; gathers only, so the
+        count stays on the device. A clone is ``repeat=1``; a split
+        (``scale_div`` given) jitters each copy's position by its parent's
+        scale times standard normal ``noise`` [G, 3] (drawn from
+        ``generator`` when not given), rotated by the parent's quaternion,
+        and divides its scale by ``scale_div``. Returns new (params, dead,
+        count)."""
+        G = self.config.max_gaussians
+        idx = torch.arange(G, device=dead.device)
+        n_new = torch.clamp(mask.sum() * repeat, max=G - count)
+        # the source rows in order: the masked rows first
+        srcs = torch.argsort(torch.where(mask, idx, G), stable=True)
+        rel = idx - count
+        src = srcs[torch.clamp(torch.div(rel, repeat, rounding_mode="floor"), 0, G - 1)]
+        use = ((rel >= 0) & (rel < n_new))[:, None]
+        new = {k: torch.where(use, params[k][src], params[k]) for k in GAUSS_GROUPS}
+        if scale_div is not None:
+            if noise is None:
+                noise = torch.randn((G, 3), generator=generator, device=dead.device)
+            scales = torch.exp(params["log_scales"][src, 0])
+            quats = params["unnorm_rotations"][src]
+            # normalized here and again inside, as the reference does
+            quats = quats / torch.linalg.norm(quats, dim=-1, keepdim=True).clamp(min=1e-8)
+            rot = lie.quaternion_to_matrix(quats)
+            offset = torch.einsum("nij,nj->ni", rot, noise * scales[:, None])
+            new["means3D"] = torch.where(use, new["means3D"] + offset, new["means3D"])
+            new["log_scales"] = torch.where(use, new["log_scales"] - float(np.log(scale_div)), new["log_scales"])
+        return new, torch.where(use[:, 0], False, dead), count + n_new

@@ -333,11 +333,12 @@ class Binning:
     """A tile binning held fixed over several renders: ``tile_ids`` [T, K]
     int32 and ``tile_mask`` [T, K] bool from ``bin_gaussians_device``
     (unpacks as that pair). The backward's K4 ordering of its live slots is
-    built at the first backward and kept for every later one."""
+    built at the first backward and kept for every later one, unless one
+    is given."""
 
-    def __init__(self, tile_ids: torch.Tensor, tile_mask: torch.Tensor):
+    def __init__(self, tile_ids: torch.Tensor, tile_mask: torch.Tensor, order: Optional[ScatterOrder] = None):
         self.tile_ids, self.tile_mask = tile_ids, tile_mask
-        self._order: Optional[ScatterOrder] = None
+        self._order = order
 
     def __iter__(self):
         return iter((self.tile_ids, self.tile_mask))
@@ -349,6 +350,25 @@ class Binning:
             ids = torch.where(self.tile_mask, self.tile_ids, torch.full_like(self.tile_ids, -1))
             self._order = scatter_order(ids.reshape(-1), n_gauss)
         return self._order
+
+
+class WindowBinning:
+    """The binnings of a window of frames (``tile_ids`` / ``tile_mask``
+    [W, T, K]) with each one's K4 ordering, all built at once, so that a
+    frame picked on the device (``pick``) renders and differentiates with
+    no host sync."""
+
+    def __init__(self, tile_ids: torch.Tensor, tile_mask: torch.Tensor, n_gauss: int):
+        self.tile_ids, self.tile_mask = tile_ids, tile_mask
+        orders = [Binning(tile_ids[i], tile_mask[i]).order(n_gauss) for i in range(tile_ids.shape[0])]
+        self._rows = [torch.stack([getattr(o, f) for o in orders]) for f in ("idx", "keys", "perm", "row_ptr")]
+        self._num_rows, self._slots = n_gauss, orders[0].slots
+
+    def pick(self, fi: torch.Tensor) -> Binning:
+        """The binning of window row ``fi`` (an index tensor of one entry)."""
+        idx, keys, perm, row_ptr = (torch.index_select(r, 0, fi)[0] for r in self._rows)
+        return Binning(torch.index_select(self.tile_ids, 0, fi)[0], torch.index_select(self.tile_mask, 0, fi)[0],
+                       ScatterOrder(idx, keys, perm, row_ptr, self._num_rows, self._slots))
 
 
 class _Rasterize(torch.autograd.Function):

@@ -139,5 +139,5 @@ def pose_inverse(M: torch.Tensor) -> torch.Tensor:
 def _bottom_row(R: torch.Tensor) -> torch.Tensor:
     """[..., 1, 4] rows (0, 0, 0, 1) for a batch of [..., 3, 3] rotations."""
     row = torch.zeros((*R.shape[:-2], 1, 4), dtype=R.dtype, device=R.device)
-    row[..., 0, 3] = 1.0
+    row[..., 0, 3].fill_(1.0)  # a fill on the device: no host copy, so a CUDA graph can capture it
     return row

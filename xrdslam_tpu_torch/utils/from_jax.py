@@ -3,8 +3,11 @@
 ``gaussian_params_from_jax`` takes the reference SplaTAM ``params`` dict
 (``means3D``, ``rgb_colors``, ``unnorm_rotations``, ``logit_opacities``,
 ``log_scales``) with numpy leaves, and optionally its ``dead`` mask and
-``count``, and returns the port's tensors. ``params_from_jax`` takes the
-reference Co-SLAM ``model_params`` tree with its leaves as numpy arrays
+``count``, and returns the port's tensors; ``splatam_state_from_jax`` puts
+such a state, with the reference's device keyframe store (``kf_rgb_u16``,
+``kf_depth``, ``kf_w2c``) and count, into a port ``SplaTAM`` in place.
+``params_from_jax`` takes the reference Co-SLAM ``model_params`` tree with
+its leaves as numpy arrays
 (``{"embed_fn": {"table": ...}, "decoder": {"sdf": {"w": [...]}, "color":
 {"w": [...]}}}``, each ``w`` ``[in, out]``; the table is ``[L, T, F]`` for
 the exact hash, a dict of ``v{l}`` / ``h{l}`` tables for the packed hash
@@ -18,7 +21,7 @@ reference Point-SLAM ``params`` tree (``{"geometry": {"feats"}, "color":
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +30,9 @@ from ..models.conv_onet import MLPDecoder
 from ..models.conv_onet_pointslam import ConvOnet2
 from ..models.gaussian_splatting import GAUSS_GROUPS
 from ..models.joint_encoding import JointEncoding
+
+if TYPE_CHECKING:
+    from ..algorithms.splatam import SplaTAM
 
 
 def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
@@ -64,6 +70,27 @@ def gaussian_params_from_jax(np_tree: Dict[str, Any], device="cpu", dead: Option
     params = {k: torch.tensor(np.asarray(np_tree[k], np.float32), device=device) for k in GAUSS_GROUPS}
     dead_t = None if dead is None else torch.tensor(np.asarray(dead, bool), device=device)
     return params, dead_t, None if count is None else int(np.asarray(count))
+
+
+@torch.no_grad()
+def splatam_state_from_jax(algo: "SplaTAM", np_tree: Dict[str, Any], dead: Any, count: Any,
+                           kf_rgb_u16: Optional[Any] = None, kf_depth: Optional[Any] = None,
+                           kf_w2c: Optional[Any] = None) -> "SplaTAM":
+    """The reference SplaTAM's table, ``dead``, count (host and device) and,
+    where given, its keyframe store rows (rgb as uint16 [N, H, W, 3], depth
+    [N, H, W], w2c [N, 4, 4], N at most the port's ``max_keyframes``)."""
+    for k in GAUSS_GROUPS:
+        _copy(algo.params[k], np_tree[k], k)
+    algo.dead.copy_(torch.from_numpy(np.asarray(dead, bool)))
+    n = int(np.asarray(count))
+    algo.count_dev.fill_(n)
+    algo.model.n_gauss = n
+    if kf_rgb_u16 is not None:
+        rgb = np.asarray(kf_rgb_u16, np.uint16)
+        algo.kf_rgb[:len(rgb)] = torch.from_numpy((rgb.astype(np.int32) - 32768).astype(np.int16))
+        _copy(algo.kf_depth[:len(rgb)], kf_depth, "kf_depth")
+        _copy(algo.kf_w2c[:len(rgb)], kf_w2c, "kf_w2c")
+    return algo
 
 
 def _linear(layer: torch.nn.Linear, w: Any, b: Any, what: str) -> None:
