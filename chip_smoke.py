@@ -80,13 +80,30 @@
    K5/K6/K4 launches equal to ``splatam_schedule``; ``[steady]`` gives
    SplaTAM's s/frame by both paths; and Point-SLAM's main path, the
    registry's settings on the office at 600x340 for 12 frames (gated; K7
-   and K4 launches equal to the schedule's). A gated run's ATE must be at most
+   and K4 launches equal to the schedule's); NICE-SLAM at full width (the
+   registry's model: C = 32, 5-block decoders, grids of 2.0 / 0.32 / 0.16 /
+   0.16 m, 32 + 16 samples, the coarse level) with ``bench_accuracy.py``'s
+   settings (``niceslam_protocol_config``) on the office at 600x340 for 60
+   frames, gated, through the group path (frames 4-57, 27 groups of 2, one
+   CUDA graph per ``(group, optimize_pose, do_kf)``, all four keys
+   captured), its K4 launches equal to ``niceslam_schedule`` in all and by
+   table (the middle grid's, the fine and colour grids', the coarse
+   grid's), its ``[graph]`` line (a replay's bits against the eager
+   group's), ``render_img`` at the last frame and ``get_mesh`` (finite, not
+   empty); the same run per frame (``XRDSLAM_DISABLE_SUPER=1``, gated, no
+   groups), and ``[steady]`` with both paths' s/frame. K4 is also held to
+   its twin at NICE-SLAM's three shapes, on the corner ids of a mapping
+   iteration's samples of office frame 0: the middle grid's (460,800 ids
+   into 4,998 x 32), the fine grid's (460,800 into 39,984 x 32) and the
+   coarse grid's (256,000 into 120 x 32). A
+   gated run's ATE must be at most
    10 cm and at most half that of a camera frozen at frame 0
    (``FROZEN_ATE_SHARE``). Every pose must be finite and every kernel of
    each main path launched (the launch counts are zeroed just before each
    run and read just after).
 5. Profiles one tracking and one mapping call of each run on a main path
-   (of a Co-SLAM or SplaTAM run also one replay of its last group's graph)
+   (of a Co-SLAM, SplaTAM or NICE-SLAM run also one replay of its last
+   group's graph)
    and of SplaTAM's K = 512 run with torch.profiler
    (Point-SLAM's mapping call with 30 iterations): wall time, device busy
    time and the kernels that take it. ``[elapsed]`` lines stamp the
@@ -95,6 +112,16 @@
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises (non-zero exit,
 no result).
+
+    python3 chip_smoke.py --niceslam-protocol
+
+builds the kernels and runs NICE-SLAM at the accuracy protocol
+(``bench_accuracy.py``'s NICE-SLAM row: 200 office frames, the same
+settings as the default run's) and prints its ``[protocol]`` row (PSNR,
+SSIM, depth-L1 of ``render_img`` every 50 frames; accuracy, completion
+and its ratio of the culled mesh) beside the JAX package's row of
+``BENCH_ACCURACY.json`` and ``bench_accuracy.py``'s gates for NICE-SLAM;
+reported, not gated (only finiteness fails it); no result line.
 
     python3 chip_smoke.py --slots-probe
 
@@ -136,13 +163,16 @@ runs each main path for a few frames under
 every operation torch names as non-deterministic (``[determinism]`` lines,
 no result line).
 
-    python3 chip_smoke.py --pointslam-repeat N --protocol-repeat M
+    python3 chip_smoke.py --pointslam-repeat N --protocol-repeat M --niceslam-seeds S
 
 runs Point-SLAM's gated main path N times, then Co-SLAM at the accuracy
-protocol (tri-plane, 200 frames, seed 0) and its row M times (either flag
-alone also works), and prints each run's ATE beside its gate, a digest of
-its poses' bits and the rows (nothing gated, no result line), and whether
-the runs of each kind were identical.
+protocol (tri-plane, 200 frames, seed 0) and its row M times, then the
+default run's NICE-SLAM (60 office frames, the protocol's settings)
+through groups and per frame at seeds 0 .. S - 1 (any of the flags alone
+also works), and prints each run's ATE beside its gate, a digest of its
+poses' bits, the rows and NICE-SLAM's largest frame error (nothing gated,
+no result line), and whether the runs of each repeated kind were
+identical.
 """
 from __future__ import annotations
 
@@ -164,6 +194,11 @@ PROTOCOL_FRAMES = 200  # bench_accuracy.py's sequence
 PROTOCOL_RENDER_FREQ = 50  # bench_accuracy.py's default render_freq
 SPLATAM_FRAMES = 20
 POINTSLAM_FRAMES = 12  # a first mapping of 1,500 iterations, then 11 x (40 tracking + 300 mapping)
+# NICE-SLAM at the accuracy protocol's settings: frames 4-57 go through 27
+# groups of 2; keyframes at 0, 10, ..., 50 put the keyframe count above 4
+# (pose optimisation in mapping) from the group at 42 on, so the run
+# captures all four keys (2, optimize_pose, do_kf)
+NICESLAM_FRAMES = 60
 # The profiled Point-SLAM mapping call runs 30 of the registry's 300
 # iterations: torch.profiler took ~4.5 minutes of the host to process a
 # 300-iteration call (420,000 kernels), and a 60-iteration call about a
@@ -257,12 +292,26 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def device_rows(prof) -> dict:
+    """{kernel name: [launches, device ns]} of a finished torch.profiler run,
+    read from its raw events: building its ``key_averages`` takes minutes
+    of the host for a trace of several 100,000 kernels."""
+    from torch.autograd import DeviceType
+
+    rows: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            r = rows.setdefault(e.name(), [0, 0])
+            r[0] += 1
+            r[1] += e.duration_ns()
+    return rows
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Mean device time of ``fn``'s kernels per call, from torch.profiler over
     ``reps`` calls: the card's own time, without the host's launch gaps that
     CUDA events around a short kernel also take in."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     fn()
@@ -271,8 +320,7 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in evs) / 1e3 / reps
+    return sum(ns for _, ns in device_rows(prof).values()) / 1e6 / reps
 
 
 def interleaved(kern, twin):
@@ -1187,6 +1235,56 @@ def check_scatter_coslam(spec, device):
     return records
 
 
+def check_scatter_niceslam(device):
+    """K4 at NICE-SLAM's three shapes no other path gives it, on the corner
+    ids of a mapping iteration's samples of office frame 0 at its pose (the
+    protocol's configuration, 600x340): the fine window's 6 slots x 200
+    pixels x (32 + 16) samples x 8 corners into the middle grid (21 x 14 x
+    17 rows of 32: about 92 ids a row, some rows long) and into the fine
+    grid (42 x 28 x 34 rows; the colour grid has its shape), and the coarse
+    window's 5 x 200 x 32 x 8 into the coarse grid (6 x 4 x 5 rows: about
+    2,100 ids a row, K4's long-row path), with a seeded random upstream
+    gradient. Returns the records; their launches are the main path's by
+    table."""
+    import torch
+
+    from xrdslam_tpu_torch.common.frame import Frame
+    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
+    from xrdslam_tpu_torch.ops.sampling import sample_pixels
+    from xrdslam_tpu_torch.ops.trilinear import grid_corners, normalize_3d_coordinate
+
+    ds = SyntheticDataset(f"n_frames=1,height={HEIGHT},width={WIDTH},scene=office", device=str(device))
+    _, rgb, depth, pose = ds[0]
+    cfg = niceslam_protocol_config(ds.bounds.tolist()).xrdslam.algorithm
+    algo = cfg.setup(camera=ds.get_camera(), device=device)
+    m = algo.model
+    fr = Frame(fid=0, rgb=rgb, depth=depth, init_pose=pose, rot_rep="quat")
+    c2w = torch.as_tensor(fr.get_pose(), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    records = []
+    for grid, coarse in (("middle", False), ("fine", False), ("coarse", True)):
+        n_slots = cfg.mapping_window_size + (0 if coarse else 1)
+        n_rays = n_slots * max(cfg.mapping_sample // n_slots, cfg.min_sample_pixels)
+        u, v = sample_pixels(n_rays, HEIGHT, WIDTH, generator=gen, device=device)
+        rays_d = algo._dirs[v, u] @ c2w[:3, :3].T
+        rays_o = c2w[:3, 3].expand(rays_d.shape)
+        z = m._z_vals(rays_o, rays_d, fr.depth_dev(device)[v, u][:, None], not coarse)
+        pts = (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]).reshape(-1, 3)
+        shape = m.grid_shapes[f"grid_{grid}"]
+        ids, _ = grid_corners(shape, normalize_3d_coordinate(pts, m.bound_coarse if coarse else m.bound))
+        ids = ids.reshape(-1).contiguous()
+        rows = int(np.prod(shape))
+        g = torch.randn((ids.shape[0], cfg.model.model_c_dim), generator=gen, device=device)
+        name = f"scatter_add[nice-slam {grid} grid]"
+        print(f"[nice-slam] {name}: {n_rays} rays x {z.shape[1]} samples x 8 corners = {ids.shape[0]} ids into "
+              f"{shape} = {rows} rows; {int(torch.unique(ids).numel())} distinct, the most on one row "
+              f"{int(torch.bincount(ids.long()).max())}")
+        rec = scatter_case(name, ids, g, rows, device)
+        records.append({"name": name, "route": "cuda", "source": "xrdslam_tpu_torch/kernels/scatter.cu",
+                        "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": name, **rec})
+    return records
+
+
 def grown_office_frame(device, model_overrides=None):
     """The gaussians SplaTAM grows from office frame 0 at 600x340, binned at
     that frame's pose, as its main path bins them, with the registry's
@@ -1544,6 +1642,109 @@ def coslam_scatter_schedule(cfg, n_frames: int, encoding: str) -> int:
     return first + later if encoding == "triplane" else first + 2 * later
 
 
+def niceslam_protocol_config(bounds):
+    """NICE-SLAM as ``bench_accuracy.py::build_from_registry`` configures it:
+    the registry's entry (its model, its 1,500 first-mapping iterations)
+    with the scene's bounds for mapping and meshing, 64 keyframes, and, for
+    a sequence that covers the reference's 2,000-frame tour in 60 or 200
+    frames, its tracking scaled up: 50 iterations of 1,024 rays at lr 3e-3,
+    edges of 50 pixels, mapping every 2nd frame, a keyframe every 10th, the
+    tracking lr decayed to 0.05 of itself."""
+    from xrdslam_tpu_torch.configs.registry import algorithm_configs
+
+    cfg = copy.deepcopy(algorithm_configs["nice-slam"])
+    a = cfg.xrdslam.algorithm
+    a.seed = 0
+    a.mapping_bound = a.marching_cubes_bound = bounds
+    a.max_keyframes = 64
+    a.tracking_n_iters, a.tracking_sample = 50, 1024
+    a.optimizers["tracking_pose"]["optimizer"].lr = 3e-3
+    a.tracking_Wedge = a.tracking_Hedge = 50
+    cfg.xrdslam.tracker.map_every = 2
+    cfg.xrdslam.mapper.keyframe_every = 10
+    a.tracking_lr_decay = 0.05
+    return cfg
+
+
+def niceslam_schedule(cfg, n_frames: int, grid_shapes) -> dict:
+    """K4 launches of a NICE-SLAM run (``cfg`` its pipeline's config; no
+    lazy start) with grids of ``grid_shapes``, in all and by the
+    rows of the table summed into: each mapped frame (the first, every
+    ``map_every``-th, the last) runs a fine call (the last frame, with
+    colour refinement, 5 of them) and a coarse call. A fine call's middle
+    iterations take the middle grid's gradient, its fine iterations the
+    middle and fine grids', its colour iterations the middle, fine and
+    colour grids'; a coarse iteration the coarse grid's. Tracking takes
+    none."""
+    a, t = cfg.algorithm, cfg.tracker
+    if t.lazy_start >= 0:
+        raise ValueError("the schedule assumes no lazy start")
+    rows = {name: int(np.prod(shape)) for name, shape in grid_shapes.items()}
+    by_rows: dict = {}
+
+    def add(grid, n):
+        by_rows[rows[grid]] = by_rows.get(rows[grid], 0) + n
+
+    for i in range(n_frames):
+        if not (i == 0 or i % t.map_every == 0 or i == n_frames - 1):
+            continue
+        n = a.mapping_first_n_iters if i == 0 else a.mapping_n_iters
+        refine = i == n_frames - 1 and a.mapping_color_refine and i > 0
+        m_end, f_end = int(a.mapping_middle_iter_ratio * n), int(a.mapping_fine_iter_ratio * n)
+        calls = 5 if refine else 1
+        add("grid_middle", calls * n)
+        add("grid_fine", calls * (n - m_end))
+        add("grid_color", calls * (n - f_end))
+        if a.coarse:
+            add("grid_coarse", n)
+    return {"scatter_add": sum(by_rows.values()), "by_rows": {str(k): v for k, v in sorted(by_rows.items())}}
+
+
+def check_niceslam_run(pipeline, res: dict, groups: bool) -> None:
+    """A NICE-SLAM run's K4 launches against ``niceslam_schedule`` and its
+    path: through the groups it must take (every group after its key's
+    first replayed, all four keys captured) or, per frame, none."""
+    want = niceslam_schedule(pipeline.config, res["frames"], pipeline.algorithm.model.grid_shapes)
+    got = {"scatter_add": res["launches"]["scatter_add"], "by_rows": res["scatter_add_by_rows"]}
+    print(f"[launches] {res['run']}: {json.dumps(got)}; schedule {json.dumps(want)}")
+    if got != want:
+        raise RuntimeError(f"{res['run']}: K4 launches {got} differ from the schedule {want}")
+    g = res["groups"]
+    if groups:
+        through_groups(res)
+        heads = list(range(4, res["frames"] - 2, 2))
+        if g["group_heads"] != heads or len(g["captures"]) != 4:
+            raise RuntimeError(f"{res['run']}: groups at {g['group_heads']} (want {heads}), "
+                               f"{len(g['captures'])} keys captured (want 4)")
+    elif g["groups"]:
+        raise RuntimeError(f"{res['run']}: {g['groups']} groups on the per-frame path")
+
+
+def check_niceslam_outputs(pipeline, name: str) -> None:
+    """``render_img`` at the last frame's estimate (with its depth) and
+    ``get_mesh``: finite, a mesh with faces."""
+    algo, ds = pipeline.algorithm, pipeline.dataset
+    n = len(ds)
+    _, gt_rgb, gt_depth, _ = ds[n - 1]
+    t0 = time.perf_counter()
+    color, depth = algo.render_img(np.asarray(algo.estimate_c2w_list[-1]), gt_depth=gt_depth, idx=n - 1)
+    t_render = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = algo.get_mesh()
+    t_mesh = time.perf_counter() - t0
+    from xrdslam_tpu_torch.common import metrics as M
+
+    mask = gt_depth > 0
+    rep = {"render_s": t_render, "psnr": M.psnr(color, gt_rgb, mask),
+           "depth_l1_cm": M.depth_l1(depth, gt_depth, mask) * 100.0, "mesh_s": t_mesh,
+           "vertices": 0 if mesh is None else len(mesh.vertices), "faces": 0 if mesh is None else len(mesh.faces)}
+    print(f"[outputs] {name}: {json.dumps(rep)}")
+    if not (np.isfinite(color).all() and np.isfinite(depth).all()) or color.shape != (HEIGHT, WIDTH, 3):
+        raise RuntimeError(f"{name}: render_img gave non-finite values or shape {color.shape}")
+    if mesh is None or not len(mesh.faces) or not np.isfinite(mesh.vertices).all():
+        raise RuntimeError(f"{name}: get_mesh gave no surface or non-finite vertices")
+
+
 # ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
@@ -1561,6 +1762,7 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
 
     from xrdslam_tpu_torch.configs.registry import algorithm_configs
     from xrdslam_tpu_torch.ops import hashgrid_fast as hf
+    from xrdslam_tpu_torch.ops import scatter as sc
     from xrdslam_tpu_torch.utils.eval_ate import evaluate_ate
 
     name = algorithm + tag
@@ -1589,6 +1791,7 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     wall = time.time() - t0
     launches = {k: v for k, v in all_launches().items() if k in counters}
     by_n = {str(n): c for n, c in sorted(hf.FWD_LAUNCHES_BY_N.items())}
+    by_rows = {str(n): c for n, c in sorted(sc.LAUNCHES_BY_ROWS.items())}
     algo = pipeline.algorithm
     est = algo.estimate_c2w_list
     if len(est) != n_frames or algo._nonfinite_poses or not all(np.isfinite(p).all() for p in est):
@@ -1603,6 +1806,8 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
                             for e, g in zip(est, algo.gt_c2w_list)]}
     if "hashgrid_fwd" in counters:  # K1's launches split by N, read with the others
         res["hashgrid_fwd_by_n"] = by_n
+    if "scatter_add" in counters:  # K4's launches split by the rows summed into
+        res["scatter_add_by_rows"] = by_rows
     if n_frames > 15:
         res["steady_s_per_frame"], res["spikes_dropped"] = steady_stats(pipeline.frame_times)
     else:  # too few frames for the steady rule: the mean after the first (its first mapping)
@@ -1755,22 +1960,22 @@ def protocol_config(bounds):
     return cfg
 
 
-def reference_row():
-    """The JAX package's co-slam row of ``BENCH_ACCURACY.json`` and
-    ``bench_accuracy.py``'s gates for it, both read as data."""
+def reference_row(algorithm: str = "co-slam"):
+    """The JAX package's row of ``BENCH_ACCURACY.json`` for ``algorithm``
+    and ``bench_accuracy.py``'s gates for it, both read as data."""
     import ast
 
     with open(os.path.join(ROOT, "BENCH_ACCURACY.json")) as f:
-        row = next(r for r in json.load(f)["algorithms"] if r["algorithm"] == "co-slam")
+        row = next(r for r in json.load(f)["algorithms"] if r["algorithm"] == algorithm)
     with open(os.path.join(ROOT, "bench_accuracy.py")) as f:
         tree = ast.parse(f.read())
     gates = next(ast.literal_eval(n.value) for n in tree.body
                  if isinstance(n, ast.Assign) and any(getattr(t, "id", "") == "GATES" for t in n.targets))
-    return row, gates["co-slam"]
+    return row, gates[algorithm]
 
 
-def protocol_row(pipeline, ate_cm: float) -> dict:
-    """``bench_accuracy.run_algo``'s co-slam row of a finished run: PSNR,
+def protocol_row(pipeline, ate_cm: float, algorithm: str = "co-slam") -> dict:
+    """``bench_accuracy.run_algo``'s row of a finished run of ``algorithm``: PSNR,
     SSIM and depth-L1 of ``render_img`` at the estimated pose every
     ``PROTOCOL_RENDER_FREQ`` frames; accuracy, completion and completion
     ratio of the culled mesh against the culled exact mesh. Prints the
@@ -1796,7 +2001,7 @@ def protocol_row(pipeline, ate_cm: float) -> dict:
     t0 = time.perf_counter()
     mesh = algo.get_mesh()
     if mesh is None:
-        raise RuntimeError("co-slam@protocol: get_mesh found no surface")
+        raise RuntimeError(f"{algorithm}@protocol: get_mesh found no surface")
     t_mesh = time.perf_counter() - t0
     t0 = time.perf_counter()
     rec = cull_mesh(ds, mesh, estimate_c2w_list=est, eval_rec=True)
@@ -1810,21 +2015,20 @@ def protocol_row(pipeline, ate_cm: float) -> dict:
            "depth_l1_cm": sums["depth_l1"] / len(frames), "accuracy_cm": m3["accuracy_cm"],
            "completion_cm": m3["completion_cm"], "completion_ratio_pct": m3["completion_ratio_pct"],
            "precision_pct": m3["precision_pct"], "recall_pct": m3["recall_pct"], "f1_pct": m3["f1_pct"]}
-    jax_row, gates = reference_row()
+    jax_row, gates = reference_row(algorithm)
     verdicts = {k: bool(row[k] <= thr) if op == "<=" else bool(row[k] >= thr) for k, (op, thr) in gates.items()}
-    print("[protocol] " + json.dumps({"port": row, "jax": {k: jax_row.get(k) for k in row},
+    print("[protocol] " + json.dumps({"algorithm": algorithm, "port": row, "jax": {k: jax_row.get(k) for k in row},
                                       "gates": {k: list(v) for k, v in gates.items()}, "port_passes": verdicts,
                                       "frames": len(ds), "render_freq": PROTOCOL_RENDER_FREQ}))
     bad = [k for k, v in row.items() if not np.isfinite(v)]
     if bad:
-        raise RuntimeError(f"co-slam@protocol: non-finite {bad}")
+        raise RuntimeError(f"{algorithm}@protocol: non-finite {bad}")
     return row
 
 
 def profile(name: str, phases) -> None:
     """torch.profiler over one call of each phase (after one warm call)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     for phase, fn in phases.items():
@@ -1836,14 +2040,14 @@ def profile(name: str, phases) -> None:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         # device rows only: an operator row repeats its kernels' time
-        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+        rows = device_rows(prof)
+        dev_ms = sum(ns for _, ns in rows.values()) / 1e6
         print(f"[profile] {name} {phase}: wall {wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
-              f"({100 * dev_ms / max(wall_ms, 1e-9):.1f}%), kernels {sum(e.count for e in evs)}")
-        top = sorted(evs, key=lambda e: -e.self_device_time_total)
+              f"({100 * dev_ms / max(wall_ms, 1e-9):.1f}%), kernels {sum(n for n, _ in rows.values())}")
+        top = sorted(rows.items(), key=lambda kv: -kv[1][1])
         # the 12 largest rows, and every copy between host and device
-        for e in top[:12] + [e for e in top[12:] if e.key.startswith("Memcpy HtoD")]:
-            print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        for key, (n, ns) in top[:12] + [kv for kv in top[12:] if kv[0].startswith("Memcpy HtoD")]:
+            print(f"[profile]   {ns / 1e6:9.3f} ms  x{n:<5d} {key[:90]}")
 
 
 def last_frame(pipeline):
@@ -1873,6 +2077,19 @@ def profile_splatam(pipeline, name: str = "splaTAM") -> None:
     tracking call (binning + 40 iterations) and one mapping call (growth,
     window binning, 60 iterations) on the last frame, as the per-frame
     path makes them; they update the finished run's map."""
+    algo = pipeline.algorithm
+    key, program, inputs = group_inputs(pipeline)
+    fr = last_frame(pipeline)
+    profile(name, {"group": lambda: algo.graphs(key, program, inputs),
+                   "track": lambda: algo.finish_tracking(algo.dispatch_tracking(fr)),
+                   "map": lambda: algo.do_mapping(fr)})
+
+
+def profile_niceslam(pipeline, name: str) -> None:
+    """One replay of the run's last group graph (``group_inputs``), then one
+    tracking call (50 iterations) and one mapping call (the fine window's 60
+    iterations and the coarse window's 60) on the last frame, as the
+    per-frame path makes them; they update the finished run's map."""
     algo = pipeline.algorithm
     key, program, inputs = group_inputs(pipeline)
     fr = last_frame(pipeline)
@@ -1991,13 +2208,16 @@ def trajectory_digest(pipeline) -> str:
     return hashlib.sha1(np.ascontiguousarray(np.asarray(pipeline.algorithm.estimate_c2w_list)).tobytes()).hexdigest()[:16]
 
 
-def repeat_runs(pointslam: int, protocol: int) -> None:
+def repeat_runs(pointslam: int, protocol: int, niceslam_seeds: int = 0) -> None:
     """Point-SLAM's gated main path (registry settings, 12 office frames)
     ``pointslam`` times, then Co-SLAM at the accuracy protocol (tri-plane,
-    200 frames, seed 0) and its row ``protocol`` times, in one process:
-    each run's ATE (full precision) beside its gate, a digest of its poses'
-    bits, and the protocol rows; nothing gated. Prints whether the runs of
-    each kind were identical."""
+    200 frames, seed 0) and its row ``protocol`` times, then NICE-SLAM's
+    run of the default smoke (60 office frames, the protocol's settings)
+    through groups and per frame at seeds 0 .. ``niceslam_seeds`` - 1, in
+    one process: each run's ATE (full precision) beside its gate, a digest
+    of its poses' bits, the protocol rows and, for NICE-SLAM, the frozen
+    camera's ATE and the largest frame error (``[seeds]``); nothing gated.
+    Prints whether the runs of each repeated kind were identical."""
     import torch
 
     office = f"height={HEIGHT},width={WIDTH},scene=office"
@@ -2022,6 +2242,23 @@ def repeat_runs(pointslam: int, protocol: int) -> None:
               f"{json.dumps(row)}", flush=True)
         del pipeline
         torch.cuda.empty_cache()
+    for seed in range(niceslam_seeds):
+        for path in ("groups", "per-frame"):
+            config = niceslam_protocol_config(bounds)
+            config.xrdslam.algorithm.seed = seed
+            if path == "per-frame":
+                os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
+            try:
+                pipeline, res = run_slam("nice-slam", f"n_frames={NICESLAM_FRAMES},{office}", ("scatter_add",),
+                                         tag=f"@seed{seed}-{path}", config=config)
+            finally:
+                os.environ.pop("XRDSLAM_DISABLE_SUPER", None)
+            row = {"seed": seed, "path": path, "ate_cm": res["ate_rmse_cm"],
+                   "gate_cm": min(ATE_LIMIT_CM, FROZEN_ATE_SHARE * res["frozen_ate_cm"]),
+                   "max_frame_err_cm": max(res["frame_err_cm"]), "poses": trajectory_digest(pipeline)}
+            print(f"[seeds] {json.dumps(row)}", flush=True)
+            del pipeline
+            torch.cuda.empty_cache()
     for name, runs in seen.items():
         print(f"[repeat] {name}: {len(runs)} runs, identical: {all(r == runs[0] for r in runs)}")
 
@@ -2077,6 +2314,56 @@ def determinism_probe() -> None:
         torch.cuda.empty_cache()
 
 
+def niceslam_runs(office: str, bounds) -> dict:
+    """NICE-SLAM's main path at the protocol's settings, 60 office frames,
+    through groups (gated, schedule, replay check, outputs, profile), then
+    per frame (gated, schedule, no groups); ``[steady]``. Returns the K4
+    launches of the group run by table, under the K4 records' names (the
+    fine grid's rows take the colour grid's launches too)."""
+    import torch
+
+    data = f"n_frames={NICESLAM_FRAMES},{office}"
+    config = niceslam_protocol_config(bounds)
+    pipeline, res = run_slam("nice-slam", data, ("scatter_add",), ate_limit_cm=ATE_LIMIT_CM, tag="@protocol",
+                             config=config)
+    check_niceslam_run(pipeline, res, groups=True)
+    shapes = pipeline.algorithm.model.grid_shapes
+    by_rows = res["scatter_add_by_rows"]
+    launches = {f"scatter_add[nice-slam {grid} grid]": by_rows[str(int(np.prod(shapes[f"grid_{grid}"])))]
+                for grid in ("middle", "fine", "coarse")}
+    steady = {"nice-slam@protocol": [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]}
+    check_group_replay(pipeline, "nice-slam@protocol", exact=False)
+    check_niceslam_outputs(pipeline, "nice-slam@protocol")
+    profile_niceslam(pipeline, "nice-slam@protocol")
+    stamp("nice-slam@protocol run, replay check, outputs and profile")
+    del pipeline
+    torch.cuda.empty_cache()
+    os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
+    try:
+        pipeline, res = run_slam("nice-slam", data, ("scatter_add",), ate_limit_cm=ATE_LIMIT_CM,
+                                 tag="@protocol-per-frame", config=config)
+    finally:
+        del os.environ["XRDSLAM_DISABLE_SUPER"]
+    check_niceslam_run(pipeline, res, groups=False)
+    steady["nice-slam@protocol-per-frame"] = [res["steady_s_per_frame"], None]
+    print(f"[steady] NICE-SLAM s/frame, by the steady rule and the median group frame: {json.dumps(steady)}")
+    stamp("nice-slam@protocol-per-frame run")
+    del pipeline
+    torch.cuda.empty_cache()
+    return launches
+
+
+def niceslam_protocol() -> None:
+    """``--niceslam-protocol``: NICE-SLAM at ``bench_accuracy.py``'s
+    protocol (200 office frames, ``niceslam_protocol_config``) and its
+    ``[protocol]`` row beside the JAX package's; reported, not gated."""
+    office = f"height={HEIGHT},width={WIDTH},scene=office"
+    pipeline, res = run_slam("nice-slam", f"n_frames={PROTOCOL_FRAMES},{office}", ("scatter_add",),
+                             tag="@protocol200", config=niceslam_protocol_config(office_bounds(office)))
+    protocol_row(pipeline, res["ate_rmse_cm"], "nice-slam")
+    stamp("nice-slam protocol row")
+
+
 T0 = time.perf_counter()
 
 
@@ -2119,9 +2406,13 @@ def main(argv) -> None:
     if argv == ["--determinism-probe"]:
         determinism_probe()
         return
+    if argv == ["--niceslam-protocol"]:
+        niceslam_protocol()
+        return
     repeats = dict(zip(argv[::2], argv[1::2]))
-    if argv and len(argv) % 2 == 0 and set(repeats) <= {"--pointslam-repeat", "--protocol-repeat"}:
-        repeat_runs(int(repeats.get("--pointslam-repeat", 0)), int(repeats.get("--protocol-repeat", 0)))
+    repeat_flags = ("--pointslam-repeat", "--protocol-repeat", "--niceslam-seeds")
+    if argv and len(argv) % 2 == 0 and set(repeats) <= set(repeat_flags):
+        repeat_runs(*(int(repeats.get(k, 0)) for k in repeat_flags))
         return
 
     # the office spec, as the Co-SLAM run's model builds it
@@ -2142,6 +2433,8 @@ def main(argv) -> None:
     records += check_hashgrid_planes(spec, device)
     records += check_scatter_coslam(spec, device)
     stamp("hash-grid kernels checked")
+    records += check_scatter_niceslam(device)
+    stamp("K4 at NICE-SLAM's shapes checked")
     records += check_raster(device)
     stamp("rasterizer kernels checked")
     records += check_point_table(device)
@@ -2289,6 +2582,9 @@ def main(argv) -> None:
     stamp("point-slam run")
     profile_pointslam(pipeline)
     stamp("point-slam profile")
+    del pipeline
+    torch.cuda.empty_cache()
+    launches.update(niceslam_runs(office, bounds))
     for r in records:
         counter = r.pop("counter")
         r["launches"] = 0 if counter is None else launches[counter]

@@ -67,3 +67,61 @@ def test_accumulation_freezes_params_between_applies():
         before = p[0].clone()
         opt.update({"g": [torch.ones(2)]}, st, {"g": p})
         assert torch.equal(p[0], before) == (i % 3 != 0)
+
+
+@pytest.mark.parametrize("device_count", [False, True])
+def test_group_of_small_and_large_tensors_matches_optax(device_count):
+    """A group whose small tensors step with multi-tensor kernels and whose
+    large one (over ``FOREACH_MAX_NUMEL`` entries) steps alone, the clip
+    over all of them, with the step count on the host or on the device:
+    optax's chain within 1e-6 over steps that clip and steps that do not."""
+    shapes = [(4, 3), (topt.FOREACH_MAX_NUMEL + 7,), (5,), (300, 256)]
+    rng = np.random.default_rng(1)
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+    def config(m):
+        return {"g": m.AdamOptimizerConfig(lr=1e-2, betas=(0.9, 0.99), weight_decay=1e-6, max_norm=400.0)}
+
+    jo = jopt.GroupOptimizers(config(jopt))
+    to = topt.GroupOptimizers(config(topt), device_count=["g"] if device_count else ())
+    jp = {"g": [jnp.asarray(a) for a in p0]}
+    tp = {"g": [torch.from_numpy(a.copy()) for a in p0]}
+    js, ts = jo.init(jp), to.init(tp)
+    for step in range(6):
+        scale = 5.0 if step % 2 else 0.05  # the global norm ~2,000 on odd steps: clipped
+        grads = [(scale * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+        jp, js = jo.update({"g": [jnp.asarray(a) for a in grads]}, js, jp)
+        to.update({"g": [torch.from_numpy(a) for a in grads]}, ts, tp)
+        for a, b in zip(jp["g"], tp["g"]):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6, rtol=0, err_msg=f"step {step}")
+    assert int(ts["g"]["count"]) == 6
+
+
+def test_pieces_keep_tables_uncopied_and_invert():
+    """``pieces``: the small tensors' entries in one vector, each large
+    tensor a view of itself; ``unpieces`` gives the tensors back in their
+    order and shapes."""
+    big = torch.arange(topt.FOREACH_MAX_NUMEL + 1, dtype=torch.float32).reshape(-1, 1)
+    ts = [torch.ones(2, 3), big, torch.full((4,), 2.0), big * 2]
+    parts = topt.pieces(ts)
+    assert [p.numel() for p in parts] == [10, big.numel(), big.numel()]
+    assert parts[1].data_ptr() == big.data_ptr()
+    back = topt.unpieces(parts, ts)
+    assert all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(back, ts))
+    assert topt.pieces([big])[0].data_ptr() == big.data_ptr()
+
+
+def test_finite_guard_sees_a_large_tensor():
+    """The finite guard zeroes every gradient when only a large tensor (a
+    piece of its own) holds a non-finite entry, and passes finite ones
+    through unchanged."""
+    from xrdslam_tpu_torch.algorithms.base import Algorithm
+
+    big = torch.ones(topt.FOREACH_MAX_NUMEL + 1)
+    good = [torch.ones(3), big, torch.full((2,), 2.0)]
+    assert all(torch.equal(a, b) for a, b in zip(Algorithm._finite_guard(torch.tensor(0.5), good), good))
+    bad_big = big.clone()
+    bad_big[-1] = float("inf")
+    out = Algorithm._finite_guard(torch.tensor(0.5), [torch.ones(3), bad_big, torch.full((2,), 2.0)])
+    assert [g.shape for g in out] == [g.shape for g in good]
+    assert all(float(g.abs().sum()) == 0.0 for g in out)

@@ -17,7 +17,7 @@ import torch
 from ..common.camera import Camera
 from ..common.frame import Frame
 from ..configs.base import InstantiateConfig
-from ..engine.optimizers import OptimizerConfig
+from ..engine.optimizers import OptimizerConfig, pieces, unpieces
 from ..models.base import ModelConfig
 
 
@@ -66,10 +66,12 @@ class Algorithm:
         it: Adam still steps on its momentum. Evaluated on the device; no
         host sync.
         """
+        parts = pieces(grads)  # a few kernels whatever the number of small tensors
         ok = torch.isfinite(loss)
-        for g in grads:
-            ok = ok & torch.isfinite(g).all()
-        return [torch.where(ok, g, torch.zeros((), dtype=g.dtype, device=g.device)) for g in grads]
+        for p in parts:
+            ok = ok & torch.isfinite(p).all()
+        zero = torch.zeros((), dtype=parts[0].dtype, device=parts[0].device)
+        return unpieces([torch.where(ok, p, zero) for p in parts], grads)
 
     def _tracking_lr_schedule(self, lr0: float) -> Optional[Callable[[int], float]]:
         """Per-frame tracking lr schedule, or None when decay is disabled:

@@ -11,15 +11,18 @@ port reads yet are left out of each entry.
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict
 
 from ..algorithms.coslam import CoSLAMConfig
+from ..algorithms.nice_slam import NiceSLAMConfig
 from ..algorithms.point_slam import PointSLAMConfig
 from ..algorithms.splatam import SplaTAMConfig
 from ..common.mesher import MesherConfig
 from ..engine.optimizers import AdamOptimizerConfig
 from ..engine.runner import RunnerConfig
-from ..engine.schedulers import PointSLAMSchedulerConfig
+from ..engine.schedulers import LRconfig, NiceSLAMSchedulerConfig, PointSLAMSchedulerConfig
+from ..models.conv_onet import ConvOnetConfig
 from ..models.conv_onet_pointslam import ConvOnet2Config
 from ..models.gaussian_splatting import GaussianSplattingConfig
 from ..models.joint_encoding import JointEncodingConfig
@@ -29,6 +32,7 @@ algorithm_configs: Dict[str, RunnerConfig] = {}
 
 descriptions = {
     "co-slam": "Implementation of co-slam (packed hash grid; the exact hash and the triplane by option).",
+    "nice-slam": "Implementation of nice-slam (dense feature grids; K4 as their gradient).",
     "splaTAM": "Implementation of splaTAM (tile rasterizer, CUDA kernels).",
     "point-slam": "Implementation of point-slam (spatial-hash kNN with a CUDA row gather).",
 }
@@ -62,6 +66,57 @@ algorithm_configs["co-slam"] = RunnerConfig(
                 "tracking_pose_t": {"optimizer": AdamOptimizerConfig(lr=1e-3), "scheduler": None},
                 "mapping_pose_r": {"optimizer": AdamOptimizerConfig(lr=1e-3, accum_step=5), "scheduler": None},
                 "mapping_pose_t": {"optimizer": AdamOptimizerConfig(lr=1e-3, accum_step=5), "scheduler": None},
+            },
+        ),
+    ),
+)
+
+algorithm_configs["nice-slam"] = RunnerConfig(
+    algorithm_name="nice-slam",
+    xrdslam=SLAMPipelineConfig(
+        tracker=TrackerConfig(map_every=5, use_relative_pose=False, save_debug_result=False),
+        mapper=MapperConfig(keyframe_every=50),
+        algorithm=NiceSLAMConfig(
+            coarse=True,
+            rot_rep="quat",
+            tracking_n_iters=10,
+            mapping_n_iters=60,
+            mapping_first_n_iters=1500,
+            mapping_window_size=5,
+            tracking_sample=200,
+            mapping_sample=1000,
+            min_sample_pixels=200,
+            ray_batch_size=30720,
+            tracking_Wedge=100,
+            tracking_Hedge=100,
+            # Replica office0 bounds
+            mapping_bound=[[-5.5, 5.9], [-6.7, 5.4], [-4.7, 5.3]],
+            marching_cubes_bound=[[-5.5, 5.9], [-6.7, 5.4], [-4.7, 5.3]],
+            mapping_middle_iter_ratio=0.4,
+            mapping_fine_iter_ratio=0.6,
+            mapping_lr_factor=1.0,
+            mapping_lr_first_factor=5.0,
+            max_keyframes=64,
+            mesher=MesherConfig(resolution=256, points_batch_size=30000),
+            model=ConvOnetConfig(
+                mapping_frustum_feature_selection=True,
+                pretrained_decoders_coarse=Path("pretrained/nice_slam/coarse.pt"),
+                pretrained_decoders_middle_fine=Path("pretrained/nice_slam/middle_fine.pt"),
+            ),
+            optimizers={
+                "decoder": {"optimizer": AdamOptimizerConfig(), "scheduler": NiceSLAMSchedulerConfig(
+                    stage_lr=LRconfig(coarse=0.0, middle=0.0, fine=0.0, color=0.005))},
+                "grid_coarse": {"optimizer": AdamOptimizerConfig(), "scheduler": NiceSLAMSchedulerConfig(
+                    stage_lr=LRconfig(coarse=0.001, middle=0.0, fine=0.0, color=0.0))},
+                "grid_middle": {"optimizer": AdamOptimizerConfig(), "scheduler": NiceSLAMSchedulerConfig(
+                    stage_lr=LRconfig(coarse=0.0, middle=0.1, fine=0.005, color=0.005))},
+                "grid_fine": {"optimizer": AdamOptimizerConfig(), "scheduler": NiceSLAMSchedulerConfig(
+                    stage_lr=LRconfig(coarse=0.0, middle=0.0, fine=0.005, color=0.005))},
+                "grid_color": {"optimizer": AdamOptimizerConfig(), "scheduler": NiceSLAMSchedulerConfig(
+                    stage_lr=LRconfig(coarse=0.0, middle=0.0, fine=0.0, color=0.005))},
+                "tracking_pose": {"optimizer": AdamOptimizerConfig(lr=1e-3), "scheduler": None},
+                "mapping_pose": {"optimizer": AdamOptimizerConfig(), "scheduler": NiceSLAMSchedulerConfig(
+                    stage_lr=LRconfig(coarse=0.0, middle=0.0, fine=0.0, color=0.001))},
             },
         ),
     ),

@@ -44,7 +44,7 @@ from ..ops import gaussian_raster, hashgrid_fast, hashgrid_planes, row_gather, s
 
 # the wrappers' launch counters, each a dict of name (or N) -> count
 COUNTERS = (hashgrid_fast.LAUNCHES, hashgrid_fast.FWD_LAUNCHES_BY_N, hashgrid_planes.LAUNCHES,
-            gaussian_raster.LAUNCHES, scatter.LAUNCHES, row_gather.LAUNCHES)
+            gaussian_raster.LAUNCHES, scatter.LAUNCHES, scatter.LAUNCHES_BY_ROWS, row_gather.LAUNCHES)
 
 
 def _counts() -> List[Dict]:

@@ -15,6 +15,14 @@ the transformations run in optax's order:
 steps above to the sum (and advances Adam's count and the schedule) and
 resets it. Parameters are updated in place.
 
+On the host-count path below, a group's tensors of at most
+``FOREACH_MAX_NUMEL`` entries step together with multi-tensor
+(``torch._foreach_*``) kernels, larger ones with plain kernels each (the
+multi-tensor kernels run one block per 65,536 entries: too few for a
+table); the clip takes the small tensors' entries as one vector and each
+large tensor alone (``pieces``). So a step is a few launches whatever the
+group's number of small tensors, and copies no table.
+
 Where a group's Adam step count lives is chosen at its init:
 
 * on the host (the default): ``count`` and ``calls`` are Python ints, and
@@ -42,6 +50,7 @@ import torch
 from ..configs.base import PrintableConfig
 
 ScheduleFn = Callable[[int], float]  # step -> absolute lr
+FOREACH_MAX_NUMEL = 65536  # one block of the multi-tensor kernels
 
 
 @dataclass
@@ -76,23 +85,65 @@ def _group_init(params: List[torch.Tensor], accum: bool, on_device: bool) -> Dic
     return state
 
 
+def pieces(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The tensors' entries as flat vectors: the small ones' (at most
+    ``FOREACH_MAX_NUMEL`` entries) in one, a copy unless there is one, then
+    each large one's, a view. An operation on a group's gradients so takes a
+    few kernels whatever its number of small tensors, and copies no table."""
+    small = [t.reshape(-1) for t in tensors if t.numel() <= FOREACH_MAX_NUMEL]
+    large = [t.reshape(-1) for t in tensors if t.numel() > FOREACH_MAX_NUMEL]
+    return ([small[0] if len(small) == 1 else torch.cat(small)] if small else []) + large
+
+
+def unpieces(parts: List[torch.Tensor], like: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``pieces``' inverse: views of ``parts`` in the shapes and order of ``like``."""
+    small = [t.numel() for t in like if t.numel() <= FOREACH_MAX_NUMEL]
+    views = iter(parts[0].split(small) if small else ())
+    large = iter(parts[1:] if small else parts)
+    return [next(views if t.numel() <= FOREACH_MAX_NUMEL else large).view(t.shape) for t in like]
+
+
 def _clip(cfg: OptimizerConfig, grads: List[torch.Tensor]) -> List[torch.Tensor]:
     if cfg.max_norm is None:
         return grads
-    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    parts = pieces(grads)
+    sq = [torch.sum(p * p) for p in parts]
+    g_norm = torch.sqrt(sum(sq[1:], sq[0]))
     keep = g_norm < cfg.max_norm
-    return [torch.where(keep, g, (g / g_norm) * cfg.max_norm) for g in grads]
+    return unpieces([torch.where(keep, p, (p / g_norm) * cfg.max_norm) for p in parts], grads)
 
 
-def _adam(cfg: OptimizerConfig, c1, c2, p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
-          nu: torch.Tensor) -> torch.Tensor:
-    """Moments updated in place; returns the step to add to ``p`` (times -lr)."""
+def _each(name: str) -> Callable:
+    """``torch._foreach_<name>`` with plain kernels: the tensor method on each
+    tensor of the list, with the other operand's matching tensor or the scalar."""
+    def op(xs, other=None, **kw):
+        others = other if isinstance(other, list) else [other] * len(xs)
+        return [getattr(x, name)(*(() if other is None else (o,)), **kw) for x, o in zip(xs, others)]
+    return op
+
+
+_MULTI_OPS = {name: getattr(torch, "_foreach_" + name) for name in ("mul_", "add_", "mul", "div", "sqrt")}
+_PLAIN_OPS = {name: _each(name) for name in _MULTI_OPS}
+
+
+def _adam(cfg: OptimizerConfig, c1, c2, ps: List[torch.Tensor], gs: List[torch.Tensor], mus: List[torch.Tensor],
+          nus: List[torch.Tensor], multi: bool) -> List[torch.Tensor]:
+    """Adam on lists of tensors: the moments updated in place; returns the
+    steps to add to ``ps`` (times -lr). With ``multi`` each operation is one
+    multi-tensor kernel over the lists (a group's small tensors), else plain
+    kernels on each tensor (a large one, or a step whose count is on the
+    device)."""
+    op = _MULTI_OPS if multi else _PLAIN_OPS
     b1, b2 = cfg.betas
-    mu.mul_(b1).add_(g, alpha=1.0 - b1)
-    nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
-    upd = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+    op["mul_"](mus, b1)
+    op["add_"](mus, gs, alpha=1.0 - b1)
+    op["mul_"](nus, b2)
+    op["add_"](nus, op["mul"](gs, gs), alpha=1.0 - b2)
+    denom = op["sqrt"](op["div"](nus, c2))
+    op["add_"](denom, cfg.eps)
+    upd = op["div"](op["div"](mus, c1), denom)
     if cfg.weight_decay:
-        upd = upd + cfg.weight_decay * p
+        op["add_"](upd, ps, alpha=cfg.weight_decay)
     return upd
 
 
@@ -105,14 +156,12 @@ def _group_step(cfg: OptimizerConfig, schedule: Optional[ScheduleFn], state: Dic
         _device_group_step(cfg, state, params, grads)
         return
     if "acc" in state:
-        for a, g in zip(state["acc"], grads):
-            a.add_(g)
+        torch._foreach_add_(state["acc"], grads)
         state["calls"] += 1
         if state["calls"] % cfg.accum_step != 0:
             return
-        grads = [a.clone() for a in state["acc"]]
-        for a in state["acc"]:
-            a.zero_()
+        grads = torch._foreach_mul(state["acc"], 1.0)
+        torch._foreach_zero_(state["acc"])
     grads = _clip(cfg, grads)
     # the schedule sees the count before this step (optax scale_by_schedule)
     lr = schedule(state["count"]) if schedule is not None else cfg.lr
@@ -120,8 +169,14 @@ def _group_step(cfg: OptimizerConfig, schedule: Optional[ScheduleFn], state: Dic
     b1, b2 = cfg.betas
     c1 = 1.0 - b1 ** state["count"]
     c2 = 1.0 - b2 ** state["count"]
-    for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-        p.add_(_adam(cfg, c1, c2, p, g, mu, nu), alpha=-lr)
+    small = [i for i, p in enumerate(params) if p.numel() <= FOREACH_MAX_NUMEL]
+    batches = [(small, True)] if small else []
+    batches += [([i], False) for i, p in enumerate(params) if p.numel() > FOREACH_MAX_NUMEL]
+    for idx, multi in batches:
+        ps = [params[i] for i in idx]
+        upd = _adam(cfg, c1, c2, ps, [grads[i] for i in idx], [state["mu"][i] for i in idx],
+                    [state["nu"][i] for i in idx], multi)
+        (_MULTI_OPS if multi else _PLAIN_OPS)["add_"](ps, upd, alpha=-lr)
 
 
 def _device_group_step(cfg: OptimizerConfig, state: Dict[str, object], params: List[torch.Tensor],
@@ -147,12 +202,12 @@ def _device_group_step(cfg: OptimizerConfig, state: Dict[str, object], params: L
     c2 = 1.0 - torch.pow(b2, k)
     for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
         if apply is None:
-            p.add_(_adam(cfg, c1, c2, p, g, mu, nu), alpha=-cfg.lr)
+            p.add_(_adam(cfg, c1, c2, [p], [g], [mu], [nu], False)[0], alpha=-cfg.lr)
             continue
         # until the first applied call the count is 0 and the step is
         # 0/0; torch.where keeps p, mu and nu wherever the call does not apply
         mu1, nu1 = mu.clone(), nu.clone()
-        upd = _adam(cfg, c1, c2, p, g, mu1, nu1)
+        (upd,) = _adam(cfg, c1, c2, [p], [g], [mu1], [nu1], False)
         mu.copy_(torch.where(apply, mu1, mu))
         nu.copy_(torch.where(apply, nu1, nu))
         p.copy_(torch.where(apply, p.add(upd, alpha=-cfg.lr), p))

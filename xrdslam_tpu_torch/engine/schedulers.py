@@ -7,7 +7,7 @@ they do not depend on the lr.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
@@ -21,3 +21,26 @@ class PointSLAMSchedulerConfig:
 
     def lr_for_stage(self, stage: str) -> float:
         return self.start_lr if stage == "geometry" else self.end_lr
+
+
+@dataclass
+class LRconfig:
+    """NICE-SLAM's learning rate of one group in each mapping stage."""
+
+    coarse: float = 0.0
+    middle: float = 0.0
+    fine: float = 0.0
+    color: float = 0.005
+
+
+@dataclass
+class NiceSLAMSchedulerConfig:
+    """lr(stage) = ``stage_lr``'s entry for the stage. The stage splits are
+    the algorithm's ``mapping_middle_iter_ratio`` and
+    ``mapping_fine_iter_ratio``; the reference's ``coarse``, the ratios and
+    ``max_steps`` here are read by nothing and not kept."""
+
+    stage_lr: LRconfig = field(default_factory=LRconfig)
+
+    def lr_for_stage(self, stage: str) -> float:
+        return getattr(self.stage_lr, stage)

@@ -1,13 +1,15 @@
-"""Co-SLAM's truncated-SDF volume rendering.
+"""Volume rendering: Co-SLAM's truncated SDF and NICE-SLAM's occupancy.
 
-Counterpart of ``sdf2weights`` / ``raw2outputs_sdf`` in
-``xrdslam_tpu/ops/rendering.py``. Inputs are [N_rays, N_samples(, C)].
+Counterpart of ``sdf2weights`` / ``raw2outputs_sdf`` /
+``raw2outputs_occupancy`` in ``xrdslam_tpu/ops/rendering.py``. Inputs are
+[N_rays, N_samples(, C)].
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def sdf2weights(sdf: torch.Tensor, z_vals: torch.Tensor, truncation: float, sc_factor: float = 1.0) -> torch.Tensor:
@@ -46,3 +48,37 @@ def raw2outputs_sdf(raw: torch.Tensor, z_vals: torch.Tensor, truncation: float, 
     if white_bkgd:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
     return rgb_map, disp_map, acc_map, weights, depth_map, depth_var
+
+
+def raw2outputs_occupancy(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: Optional[torch.Tensor] = None,
+                          occupancy: bool = True, coef: float = 10.0) -> Tuple[torch.Tensor, ...]:
+    """Occupancy alpha compositing from raw [N, S, 4] = (rgb in [0, 1], occ).
+
+    alpha = sigmoid(coef * occ) in occupancy mode, else 1 - exp(-relu(occ)
+    * delta) with the sample spacing delta scaled by |rays_d|. The
+    transmittance is formed in log space, exp(cumsum(log(1 - alpha))):
+    cumprod's backward divides by the product, which underflows to 0 on
+    saturated rays. In occupancy mode log(1 - alpha) is -softplus(coef *
+    occ) exactly, whose backward stays bounded where alpha rounds to 1 in
+    fp32 (the generic log(1 - alpha + 1e-10) backward reaches 1e10 there).
+
+    Returns (depth [N], depth_var [N], rgb [N, 3], weights [N, S]).
+    """
+    if occupancy:
+        u = coef * raw[..., 3]
+        alpha = torch.sigmoid(u)
+        log_t = -F.softplus(u)
+    else:
+        dists = z_vals[..., 1:] - z_vals[..., :-1]
+        dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
+        if rays_d is not None:
+            dists = dists * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        alpha = 1.0 - torch.exp(-torch.maximum(raw[..., 3], torch.zeros_like(raw[..., 3])) * dists)
+        log_t = torch.log(1.0 - alpha + 1e-10)
+    zeros = torch.zeros_like(log_t[..., :1])
+    transmittance = torch.exp(torch.cat([zeros, torch.cumsum(log_t, -1)[..., :-1]], -1))
+    weights = alpha * transmittance
+    rgb_map = torch.sum(weights[..., None] * raw[..., :3], dim=-2)
+    depth_map = torch.sum(weights * z_vals, dim=-1)
+    depth_var = torch.sum(weights * torch.square(z_vals - depth_map[..., None]), dim=-1)
+    return depth_map, depth_var, rgb_map, weights

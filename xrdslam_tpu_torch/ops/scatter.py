@@ -22,7 +22,9 @@ launch; a CPU tensor goes to ``scatter_add_torch`` (``index_add_``), or,
 with an ordering, to ``scatter_add_sorted_torch``.
 Indices outside ``[0, num_rows)`` are dropped by both, as JAX drops them.
 ``LAUNCHES["scatter_add"]`` counts launches of the summing kernel,
-``LAUNCHES["scatter_order"]`` those of the row-pointer search.
+``LAUNCHES["scatter_order"]`` those of the row-pointer search;
+``LAUNCHES_BY_ROWS`` splits the summing kernel's by the rows of the table
+it sums into.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import torch
 from .. import kernels
 
 LAUNCHES: Dict[str, int] = {"scatter_add": 0, "scatter_order": 0}
+LAUNCHES_BY_ROWS: Dict[int, int] = {}  # num_rows -> summing kernel launches
 
 _p, _ll = ctypes.c_void_p, ctypes.c_longlong
 _ORDER = kernels.Kernel("scatter", "xr_scatter_order", [_p, _ll, _ll, _p, _p])
@@ -45,6 +48,7 @@ _SLOTS = kernels.Kernel("scatter", "xr_scatter_slots", [_ll], restype=_ll)
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_ROWS.clear()
 
 
 class ScatterOrder(NamedTuple):
@@ -119,6 +123,7 @@ def scatter_add_ordered(order: ScatterOrder, g: torch.Tensor) -> torch.Tensor:
     _SUM(order.keys.data_ptr(), order.perm.data_ptr(), order.row_ptr.data_ptr(), g.data_ptr(), out.data_ptr(),
          partials.data_ptr(), n, c, order.num_rows, int(vec4), kernels.stream(g))
     LAUNCHES["scatter_add"] += 1
+    LAUNCHES_BY_ROWS[order.num_rows] = LAUNCHES_BY_ROWS.get(order.num_rows, 0) + 1
     return out
 
 

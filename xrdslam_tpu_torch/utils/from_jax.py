@@ -18,6 +18,12 @@ reference Point-SLAM ``params`` tree (``{"geometry": {"feats"}, "color":
 {"feats", "relpos_B", "nb_w1", "nb_b1", "nb_w2", "nb_b2"}, "decoder":
 {"geo": ..., "col": ...}}``, each decoder ``{"B", "pts_w", "pts_b", "fc_w",
 "fc_b", "out_w", "out_b"}``) and copies it into a ``ConvOnet2``.
+``niceslam_params_from_jax`` takes the reference NICE-SLAM ``params`` tree
+(``grid_middle``, ``grid_fine``, ``grid_color``, ``grid_coarse`` as [X, Y,
+Z, C], and ``decoder``: ``{name: decoder tree}`` for the trainable
+decoders, the coarse one without ``B`` and ``fc_*``) and, for decoders the
+reference keeps frozen, its ``frozen`` dict; copies both into a
+``ConvOnet``.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.conv_onet import MLPDecoder
+from ..models.conv_onet import ConvOnet, MLPDecoder
 from ..models.conv_onet_pointslam import ConvOnet2
 from ..models.gaussian_splatting import GAUSS_GROUPS
 from ..models.joint_encoding import JointEncoding
@@ -99,9 +105,11 @@ def _linear(layer: torch.nn.Linear, w: Any, b: Any, what: str) -> None:
 
 
 def _decoder(dec: MLPDecoder, tree: Dict[str, Any], what: str) -> None:
-    _copy(dec.B, tree["B"], f"{what}.B")
-    if len(tree["pts_w"]) != len(dec.pts) or ("fc_w" in tree) != (dec.fc is not None):
+    if (len(tree["pts_w"]) != len(dec.pts) or ("fc_w" in tree) != (dec.fc is not None)
+            or ("B" in tree) != (dec.B is not None)):
         raise ValueError(f"{what}: the reference decoder has another layout")
+    if dec.B is not None:
+        _copy(dec.B, tree["B"], f"{what}.B")
     for i, layer in enumerate(dec.pts):
         _linear(layer, tree["pts_w"][i], tree["pts_b"][i], f"{what}.pts[{i}]")
     for i, layer in enumerate(dec.fc or []):
@@ -121,4 +129,19 @@ def pointslam_params_from_jax(np_tree: Dict[str, Any], model: ConvOnet2) -> Conv
     _linear(model.nb2, col["nb_w2"], col["nb_b2"], "color.nb2")
     _decoder(model.geo_decoder, np_tree["decoder"]["geo"], "decoder.geo")
     _decoder(model.col_decoder, np_tree["decoder"]["col"], "decoder.col")
+    return model
+
+
+@torch.no_grad()
+def niceslam_params_from_jax(np_tree: Dict[str, Any], model: ConvOnet,
+                             frozen: Optional[Dict[str, Any]] = None) -> ConvOnet:
+    if sorted(k for k in np_tree if k.startswith("grid_")) != sorted(model.grids):
+        raise ValueError(f"the reference's grids {sorted(np_tree)} do not match the model's {sorted(model.grids)}")
+    for name, grid in model.grids.items():
+        _copy(grid, np_tree[name], name)
+    trees = {**(frozen or {}), **np_tree["decoder"]}
+    if sorted(trees) != sorted(model.decoders):
+        raise ValueError(f"the reference's decoders {sorted(trees)} do not match the model's {sorted(model.decoders)}")
+    for name, dec in model.decoders.items():
+        _decoder(dec, trees[name], f"decoder.{name}")
     return model
