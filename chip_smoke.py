@@ -90,20 +90,41 @@
    table (the middle grid's, the fine and colour grids', the coarse
    grid's), its ``[graph]`` line (a replay's bits against the eager
    group's), ``render_img`` at the last frame and ``get_mesh`` (finite, not
-   empty); the same run per frame (``XRDSLAM_DISABLE_SUPER=1``, gated, no
-   groups), and ``[steady]`` with both paths' s/frame. K4 is also held to
+   empty); the same settings per frame on the first 20 frames
+   (``XRDSLAM_DISABLE_SUPER=1``, gated, no groups), and ``[steady]`` with
+   both paths' s/frame. K4 is also held to
    its twin at NICE-SLAM's three shapes, on the corner ids of a mapping
    iteration's samples of office frame 0: the middle grid's (460,800 ids
    into 4,998 x 32), the fine grid's (460,800 into 39,984 x 32) and the
-   coarse grid's (256,000 into 120 x 32). A
+   coarse grid's (256,000 into 120 x 32). Vox-Fusion at the registry's
+   settings (the full model: 0.2 m voxels, 16,384 voxels, 20,000
+   embeddings of 16, 96 probes, 20 hits x 10 samples; 30 tracking and 15
+   mapping iterations of 1,024 rays a window slot, window 5, relative
+   poses offset by 10 m) on the office for 60 frames, not cut, gated,
+   through its fused step (frames 2-58, one CUDA graph replay a frame,
+   keys ``(optimize_pose, do_kf)``, both captured: frame 50 is a keyframe
+   inside one), its K4 launches equal to ``voxfusion_schedule``, its
+   ``[voxels]`` line (voxels and vertices allocated, either table full),
+   ``[insert]`` (frame 0's depth inserted on the device into an empty map
+   against the host ``VoxelHashMap``: the same voxel coordinates and
+   vertex count), ``[graph]`` (a replay's bits against the eager frame's),
+   ``render_img`` at the last frame and ``get_mesh``; the same run per
+   frame (``XRDSLAM_DISABLE_SUPER=1``, no groups; gated at the ATE of a
+   camera frozen at frame 0 instead of half of it, see
+   ``VOXFUSION_PER_FRAME_NOTE``), and
+   ``[steady]`` with both paths' s/frame. K4 is also held to its twin at
+   Vox-Fusion's shape, on the ids and upstream gradient of the last
+   iteration of the first mapping call on office frame 0 (819,200 ids
+   into 20,000 x 16; voxel 0's 8 rows, where the segments that hit no
+   voxel point, hold most of them). A
    gated run's ATE must be at most
    10 cm and at most half that of a camera frozen at frame 0
    (``FROZEN_ATE_SHARE``). Every pose must be finite and every kernel of
    each main path launched (the launch counts are zeroed just before each
    run and read just after).
 5. Profiles one tracking and one mapping call of each run on a main path
-   (of a Co-SLAM, SplaTAM or NICE-SLAM run also one replay of its last
-   group's graph)
+   (of a Co-SLAM, SplaTAM, NICE-SLAM or Vox-Fusion run also one replay of
+   its last group's graph)
    and of SplaTAM's K = 512 run with torch.profiler
    (Point-SLAM's mapping call with 30 iterations): wall time, device busy
    time and the kernels that take it. ``[elapsed]`` lines stamp the
@@ -163,16 +184,17 @@ runs each main path for a few frames under
 every operation torch names as non-deterministic (``[determinism]`` lines,
 no result line).
 
-    python3 chip_smoke.py --pointslam-repeat N --protocol-repeat M --niceslam-seeds S
+    python3 chip_smoke.py --pointslam-repeat N --protocol-repeat M --niceslam-seeds S --voxfusion-seeds V
 
 runs Point-SLAM's gated main path N times, then Co-SLAM at the accuracy
 protocol (tri-plane, 200 frames, seed 0) and its row M times, then the
 default run's NICE-SLAM (60 office frames, the protocol's settings)
-through groups and per frame at seeds 0 .. S - 1 (any of the flags alone
-also works), and prints each run's ATE beside its gate, a digest of its
-poses' bits, the rows and NICE-SLAM's largest frame error (nothing gated,
-no result line), and whether the runs of each repeated kind were
-identical.
+through groups and per frame at seeds 0 .. S - 1, then Vox-Fusion's
+(60 office frames, the registry's settings) through groups, per frame and
+per frame at seeds 0 .. V - 1 (any of the flags alone also works), and prints each run's ATE beside its gate, a
+digest of its poses' bits, the rows and NICE-SLAM's and Vox-Fusion's
+largest frame error (nothing gated, no result line), and whether the runs
+of each repeated kind were identical.
 """
 from __future__ import annotations
 
@@ -199,6 +221,24 @@ POINTSLAM_FRAMES = 12  # a first mapping of 1,500 iterations, then 11 x (40 trac
 # (pose optimisation in mapping) from the group at 42 on, so the run
 # captures all four keys (2, optimize_pose, do_kf)
 NICESLAM_FRAMES = 60
+# NICE-SLAM's per-frame A/B runs the first 20 of those frames (~2.5 s a
+# frame): the smoke's Vox-Fusion runs took the time the other 40 took
+NICESLAM_PER_FRAME_FRAMES = 20
+# Vox-Fusion at the registry's settings (map_every 1, keyframe_every 50):
+# frames 2-58 go through the fused step, frame 50 a keyframe inside one, so
+# the run captures both keys (optimize_pose, do_kf): (True, False), (True, True)
+VOXFUSION_FRAMES = 60
+# VOXFUSION_PER_FRAME_NOTE: Vox-Fusion's per-frame A/B runs the same
+# settings, gated looser than the other runs: its ATE must be at most
+# ATE_LIMIT_CM and at most VOXFUSION_PER_FRAME_FROZEN_SHARE of a frozen
+# camera's, i.e. it must beat a camera that never moves. At the registry's
+# 30 tracking iterations a frame (tuned for office0's 2,000 frames; the
+# office tour moves 33 times as far a frame) the reference's per-frame
+# tracking drifts on this sequence in either package: ``--voxfusion-seeds``
+# runs both paths at several seeds; tools/voxfusion_per_frame_drift.py runs
+# the JAX package and the port per frame on the CPU at a reduced size
+# (PERF.md, PR 11).
+VOXFUSION_PER_FRAME_FROZEN_SHARE = 1.0
 # The profiled Point-SLAM mapping call runs 30 of the registry's 300
 # iterations: torch.profiler took ~4.5 minutes of the host to process a
 # 300-iteration call (420,000 kernels), and a 60-iteration call about a
@@ -310,17 +350,24 @@ def device_rows(prof) -> dict:
 def device_ms(fn, reps: int = 20) -> float:
     """Mean device time of ``fn``'s kernels per call, from torch.profiler over
     ``reps`` calls: the card's own time, without the host's launch gaps that
-    CUDA events around a short kernel also take in."""
+    CUDA events around a short kernel also take in. The profiler now and
+    then records no device event at all: it is asked again, twice, and
+    then CUDA events time ``fn`` instead (a ``[time]`` line says so)."""
     import torch
     from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ns for _, ns in device_rows(prof).values()) / 1e6 / reps
+    for _ in range(3):
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ns = sum(ns for _, ns in device_rows(prof).values())
+        if ns > 0:
+            return ns / 1e6 / reps
+    print("[time] torch.profiler recorded no device event in 3 tries: timed by CUDA events instead", flush=True)
+    return cuda_ms(fn, reps)
 
 
 def interleaved(kern, twin):
@@ -1285,6 +1332,56 @@ def check_scatter_niceslam(device):
     return records
 
 
+def relative_first_pose(cfg):
+    """Frame 0's pose in a relative-pose run (``cfg`` its pipeline's
+    config): the identity, shifted by ``init_pose_offset``."""
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] += cfg.tracker.init_pose_offset
+    return pose
+
+
+def check_scatter_voxfusion(device):
+    """K4 at Vox-Fusion's shape, on the ids and upstream gradient of a real
+    mapping iteration: the last of the first mapping call on office frame 0
+    at 600x340 (the registry's model, the frame at the run's first pose):
+    5 window slots x 1,024 pixels x 20 segments x 8 corners = 819,200 ids
+    into the 20,000 rows of 16 of the embedding table. A segment that hits
+    no voxel points at voxel 0 with a zero gradient, so voxel 0's 8 rows are
+    K4's long rows. Returns the record; its launches are the main path's."""
+    import torch
+
+    from xrdslam_tpu_torch.common.frame import Frame
+    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
+    from xrdslam_tpu_torch.configs.registry import algorithm_configs
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    cfg = copy.deepcopy(algorithm_configs["vox-fusion"].xrdslam)
+    ds = SyntheticDataset(f"n_frames=1,height={HEIGHT},width={WIDTH},scene=office", device=str(device))
+    _, rgb, depth, _ = ds[0]
+    algo = cfg.algorithm.setup(camera=ds.get_camera(), device=device)
+    last, shipped = [], sc.scatter_add
+
+    def keep_last(idx, g, rows):
+        last[:] = [idx.detach().clone(), g.detach().clone(), rows]
+        return shipped(idx, g, rows)
+
+    sc.scatter_add = keep_last
+    try:
+        algo.do_mapping(Frame(fid=0, rgb=rgb, depth=depth, init_pose=relative_first_pose(cfg)))
+    finally:
+        sc.scatter_add = shipped
+    idx, g, rows = last
+    per_row = torch.bincount(idx.long(), minlength=rows)
+    vox0 = per_row[algo.maps["vox_vertex_idx"][0].long()].tolist()
+    name = "scatter_add[vox-fusion]"
+    print(f"[vox-fusion] {name}: {idx.shape[0]} ids x {g.shape[1]} into {rows} rows ({int(algo.maps['n_voxels'])} "
+          f"voxels, {int(algo.maps['n_vertices'])} vertices after frame 0); {int((per_row > 0).sum())} rows hit, "
+          f"voxel 0's 8 rows {vox0}; {float((g != 0).any(1).float().mean()):.4f} of the entries nonzero")
+    rec = scatter_case(name, idx, g, rows, device)
+    return [{"name": name, "route": "cuda", "source": "xrdslam_tpu_torch/kernels/scatter.cu",
+             "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": name, **rec}]
+
+
 def grown_office_frame(device, model_overrides=None):
     """The gaussians SplaTAM grows from office frame 0 at 600x340, binned at
     that frame's pose, as its main path bins them, with the registry's
@@ -1720,7 +1817,7 @@ def check_niceslam_run(pipeline, res: dict, groups: bool) -> None:
         raise RuntimeError(f"{res['run']}: {g['groups']} groups on the per-frame path")
 
 
-def check_niceslam_outputs(pipeline, name: str) -> None:
+def check_outputs(pipeline, name: str) -> None:
     """``render_img`` at the last frame's estimate (with its depth) and
     ``get_mesh``: finite, a mesh with faces."""
     algo, ds = pipeline.algorithm, pipeline.dataset
@@ -1745,19 +1842,97 @@ def check_niceslam_outputs(pipeline, name: str) -> None:
         raise RuntimeError(f"{name}: get_mesh gave no surface or non-finite vertices")
 
 
+def voxfusion_schedule(cfg, n_frames: int) -> int:
+    """K4 launches of a Vox-Fusion run (``cfg`` its pipeline's config):
+    every frame is mapped (``map_every`` 1), each mapping iteration takes
+    the embeddings' gradient in one launch (the first call
+    ``mapping_first_n_iters`` of them); tracking takes none."""
+    a, t = cfg.algorithm, cfg.tracker
+    if t.map_every != 1:
+        raise ValueError("the schedule assumes that every frame is mapped")
+    return a.mapping_first_n_iters + a.mapping_n_iters * (n_frames - 1)
+
+
+def check_voxfusion_run(pipeline, res: dict, groups: bool) -> None:
+    """A Vox-Fusion run's K4 launches against ``voxfusion_schedule``, its
+    path (through groups: frames 2 to the last but one, both keys
+    captured; per frame: none) and its voxel map (``[voxels]``: the voxels
+    and vertices allocated, whether either table is full)."""
+    want = voxfusion_schedule(pipeline.config, res["frames"])
+    print(f"[launches] {res['run']}: {json.dumps(res['launches'])}; schedule scatter_add {want}")
+    if res["launches"]["scatter_add"] != want:
+        raise RuntimeError(f"{res['run']}: scatter_add launches {res['launches']['scatter_add']} != {want}")
+    g = res["groups"]
+    if groups:
+        through_groups(res)
+        heads, keys = list(range(2, res["frames"] - 1)), sorted(g["captures"])
+        if g["group_heads"] != heads or keys != ["(True, False)", "(True, True)"]:
+            raise RuntimeError(f"{res['run']}: groups at {g['group_heads']} (want {heads}), keys {keys}")
+    elif g["groups"]:
+        raise RuntimeError(f"{res['run']}: {g['groups']} groups on the per-frame path")
+    algo = pipeline.algorithm
+    m = algo.config.model
+    nv, ne = int(algo.maps["n_voxels"]), int(algo.maps["n_vertices"])
+    rep = {"voxels": nv, "max_voxels": m.max_voxels, "vertices": ne, "max_vertices": m.num_embeddings,
+           "voxels_full": nv >= m.max_voxels, "vertices_full": ne >= m.num_embeddings}
+    print(f"[voxels] {res['run']}: {json.dumps(rep)}")
+
+
+def check_voxel_insertion(pipeline) -> None:
+    """``[insert]``: frame 0's depth at the run's first pose, inserted on
+    the device into an empty map (calls of the run's 1,024 new voxels at
+    most, until one adds none), against the host ``VoxelHashMap`` on the
+    same points: the same set of voxel coordinates and the same vertex
+    count."""
+    import torch
+
+    from xrdslam_tpu_torch.algorithms.voxfusion import MAX_NEW_VOXELS
+    from xrdslam_tpu_torch.ops import voxel_hash as vh
+
+    algo = pipeline.algorithm
+    m = algo.config.model
+    c2w = torch.as_tensor(relative_first_pose(pipeline.config), device=algo.device)
+    depth = torch.as_tensor(pipeline.dataset[0][2], device=algo.device)
+    pts = (algo._dirs * depth[..., None]).reshape(-1, 3) @ c2w[:3, :3].T + c2w[:3, 3]
+    valid = (depth > 0).reshape(-1)
+    maps = vh.empty_device_maps(m.max_voxels, m.num_embeddings, device=algo.device)
+    t0 = time.perf_counter()
+    calls, before = 0, -1
+    while int(maps["n_voxels"]) != before:
+        before = int(maps["n_voxels"])
+        vh.insert_points_device(maps, pts, valid, voxel_size=m.voxel_size, max_voxels=m.max_voxels,
+                                max_vertices=m.num_embeddings, max_new=MAX_NEW_VOXELS)
+        calls += 1
+    t_dev = time.perf_counter() - t0
+    host = vh.VoxelHashMap(m.max_voxels, m.num_embeddings, m.voxel_size)
+    t0 = time.perf_counter()
+    host.insert_points(pts[valid].cpu().numpy())
+    t_host = time.perf_counter() - t0
+    nv = int(maps["n_voxels"])
+    dev_set = set(map(tuple, maps["vox_coords"][:nv].cpu().numpy().tolist()))
+    host_set = set(map(tuple, host.vox_coords[:host.n_voxels].tolist()))
+    rep = {"device_voxels": nv, "host_voxels": host.n_voxels, "device_vertices": int(maps["n_vertices"]),
+           "host_vertices": host.n_vertices, "same_voxel_set": dev_set == host_set, "device_calls": calls,
+           "device_s": t_dev, "host_s": t_host}
+    print(f"[insert] vox-fusion frame 0: {json.dumps(rep)}")
+    if dev_set != host_set or rep["device_vertices"] != host.n_vertices:
+        raise RuntimeError(f"vox-fusion: the device insertion of frame 0 differs from the host allocator's: {rep}")
+
+
 # ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
 
-def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_cm=None, tag: str = "", config=None):
+def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_cm=None, tag: str = "", config=None,
+             frozen_share: float = None):
     """One algorithm through the port's runner on synthetic ``data`` with
     the registry's settings and ``overrides`` ({dotted config path under
     ``xrdslam``: value}); returns (pipeline, results). The launch counts
     are zeroed just before the run and read just after; each of
     ``counters`` must have moved. Poses must be finite; where
     ``ate_limit_cm`` is given, the ATE must be at most that and at most
-    ``FROZEN_ATE_SHARE`` of the ATE of a camera frozen at frame 0.
-    ``config`` replaces the registry's entry."""
+    ``frozen_share`` (by default ``FROZEN_ATE_SHARE``) of the ATE of a
+    camera frozen at frame 0. ``config`` replaces the registry's entry."""
     import torch
 
     from xrdslam_tpu_torch.configs.registry import algorithm_configs
@@ -1824,9 +1999,10 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
         res["groups"] = groups_report(pipeline, name)
     print(f"[slam] {json.dumps(res)}")
     if ate_limit_cm is not None:
-        limit = min(ate_limit_cm, FROZEN_ATE_SHARE * frozen_cm)
+        share = FROZEN_ATE_SHARE if frozen_share is None else frozen_share
+        limit = min(ate_limit_cm, share * frozen_cm)
         print(f"[gate] {name}: ATE {ate_cm:.4f} cm against {limit:.4f} cm (the smaller of {ate_limit_cm} cm and "
-              f"{FROZEN_ATE_SHARE} x {frozen_cm:.4f} cm, the ATE of a camera frozen at frame 0)")
+              f"{share} x {frozen_cm:.4f} cm, the ATE of a camera frozen at frame 0)")
         if ate_cm > limit:
             raise RuntimeError(f"{name}: ATE {ate_cm:.3f} cm > {limit:.3f} cm")
     if algorithm == "splaTAM" and not 0 < algo.n_gauss <= algo.config.model.max_gaussians:
@@ -2072,24 +2248,13 @@ def profile_coslam(pipeline, name: str = "co-slam") -> None:
                    "map": lambda: algo.map_step(*args, algo.config.mapping_n_iters, False, algo._cur_cap())})
 
 
-def profile_splatam(pipeline, name: str = "splaTAM") -> None:
-    """One replay of a captured frame program (``group_inputs``), then one
-    tracking call (binning + 40 iterations) and one mapping call (growth,
-    window binning, 60 iterations) on the last frame, as the per-frame
-    path makes them; they update the finished run's map."""
-    algo = pipeline.algorithm
-    key, program, inputs = group_inputs(pipeline)
-    fr = last_frame(pipeline)
-    profile(name, {"group": lambda: algo.graphs(key, program, inputs),
-                   "track": lambda: algo.finish_tracking(algo.dispatch_tracking(fr)),
-                   "map": lambda: algo.do_mapping(fr)})
-
-
-def profile_niceslam(pipeline, name: str) -> None:
-    """One replay of the run's last group graph (``group_inputs``), then one
-    tracking call (50 iterations) and one mapping call (the fine window's 60
-    iterations and the coarse window's 60) on the last frame, as the
-    per-frame path makes them; they update the finished run's map."""
+def profile_steps(pipeline, name: str) -> None:
+    """One replay of a captured program of the run (``group_inputs``), then
+    one tracking call and one mapping call on the last frame, as the
+    per-frame path makes them (SplaTAM: binning and 40 iterations; growth,
+    window binning and 60. NICE-SLAM: 50 iterations; the fine window's 60
+    and the coarse window's 60. Vox-Fusion: 30; the voxel insertion and
+    15); they update the finished run's map."""
     algo = pipeline.algorithm
     key, program, inputs = group_inputs(pipeline)
     fr = last_frame(pipeline)
@@ -2208,16 +2373,18 @@ def trajectory_digest(pipeline) -> str:
     return hashlib.sha1(np.ascontiguousarray(np.asarray(pipeline.algorithm.estimate_c2w_list)).tobytes()).hexdigest()[:16]
 
 
-def repeat_runs(pointslam: int, protocol: int, niceslam_seeds: int = 0) -> None:
+def repeat_runs(pointslam: int, protocol: int, niceslam_seeds: int = 0, voxfusion_seeds: int = 0) -> None:
     """Point-SLAM's gated main path (registry settings, 12 office frames)
     ``pointslam`` times, then Co-SLAM at the accuracy protocol (tri-plane,
     200 frames, seed 0) and its row ``protocol`` times, then NICE-SLAM's
     run of the default smoke (60 office frames, the protocol's settings)
-    through groups and per frame at seeds 0 .. ``niceslam_seeds`` - 1, in
-    one process: each run's ATE (full precision) beside its gate, a digest
-    of its poses' bits, the protocol rows and, for NICE-SLAM, the frozen
-    camera's ATE and the largest frame error (``[seeds]``); nothing gated.
-    Prints whether the runs of each repeated kind were identical."""
+    through groups and per frame at seeds 0 .. ``niceslam_seeds`` - 1, then
+    Vox-Fusion's (60 office frames, the registry's settings) through groups
+    and per frame at seeds 0 .. ``voxfusion_seeds`` - 1, in one process: each run's ATE (full
+    precision) beside its gate, a digest of its poses' bits, the protocol
+    rows and, for NICE-SLAM and Vox-Fusion, the largest frame error
+    (``[seeds]``); nothing gated. Prints whether the runs of each repeated
+    kind were identical."""
     import torch
 
     office = f"height={HEIGHT},width={WIDTH},scene=office"
@@ -2257,6 +2424,22 @@ def repeat_runs(pointslam: int, protocol: int, niceslam_seeds: int = 0) -> None:
                    "gate_cm": min(ATE_LIMIT_CM, FROZEN_ATE_SHARE * res["frozen_ate_cm"]),
                    "max_frame_err_cm": max(res["frame_err_cm"]), "poses": trajectory_digest(pipeline)}
             print(f"[seeds] {json.dumps(row)}", flush=True)
+            del pipeline
+            torch.cuda.empty_cache()
+    for seed in range(voxfusion_seeds):
+        for path in ("groups", "per-frame"):
+            if path == "per-frame":
+                os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
+            try:
+                pipeline, res = run_slam("vox-fusion", f"n_frames={VOXFUSION_FRAMES},{office}", ("scatter_add",),
+                                         overrides={"algorithm.seed": seed}, tag=f"@seed{seed}-{path}")
+            finally:
+                os.environ.pop("XRDSLAM_DISABLE_SUPER", None)
+            share = FROZEN_ATE_SHARE if path == "groups" else VOXFUSION_PER_FRAME_FROZEN_SHARE
+            row = {"seed": seed, "path": path, "ate_cm": res["ate_rmse_cm"],
+                   "gate_cm": min(ATE_LIMIT_CM, share * res["frozen_ate_cm"]),
+                   "max_frame_err_cm": max(res["frame_err_cm"]), "poses": trajectory_digest(pipeline)}
+            print(f"[seeds] vox-fusion {json.dumps(row)}", flush=True)
             del pipeline
             torch.cuda.empty_cache()
     for name, runs in seen.items():
@@ -2317,7 +2500,7 @@ def determinism_probe() -> None:
 def niceslam_runs(office: str, bounds) -> dict:
     """NICE-SLAM's main path at the protocol's settings, 60 office frames,
     through groups (gated, schedule, replay check, outputs, profile), then
-    per frame (gated, schedule, no groups); ``[steady]``. Returns the K4
+    the first 20 per frame (gated, schedule, no groups); ``[steady]``. Returns the K4
     launches of the group run by table, under the K4 records' names (the
     fine grid's rows take the colour grid's launches too)."""
     import torch
@@ -2333,20 +2516,21 @@ def niceslam_runs(office: str, bounds) -> dict:
                 for grid in ("middle", "fine", "coarse")}
     steady = {"nice-slam@protocol": [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]}
     check_group_replay(pipeline, "nice-slam@protocol", exact=False)
-    check_niceslam_outputs(pipeline, "nice-slam@protocol")
-    profile_niceslam(pipeline, "nice-slam@protocol")
+    check_outputs(pipeline, "nice-slam@protocol")
+    profile_steps(pipeline, "nice-slam@protocol")
     stamp("nice-slam@protocol run, replay check, outputs and profile")
     del pipeline
     torch.cuda.empty_cache()
     os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
     try:
-        pipeline, res = run_slam("nice-slam", data, ("scatter_add",), ate_limit_cm=ATE_LIMIT_CM,
-                                 tag="@protocol-per-frame", config=config)
+        pipeline, res = run_slam("nice-slam", f"n_frames={NICESLAM_PER_FRAME_FRAMES},{office}", ("scatter_add",),
+                                 ate_limit_cm=ATE_LIMIT_CM, tag="@protocol-per-frame", config=config)
     finally:
         del os.environ["XRDSLAM_DISABLE_SUPER"]
     check_niceslam_run(pipeline, res, groups=False)
     steady["nice-slam@protocol-per-frame"] = [res["steady_s_per_frame"], None]
-    print(f"[steady] NICE-SLAM s/frame, by the steady rule and the median group frame: {json.dumps(steady)}")
+    print(f"[steady] NICE-SLAM s/frame, by the steady rule and the median group frame (the per-frame run's: "
+          f"frames 15-{NICESLAM_PER_FRAME_FRAMES - 1} of its {NICESLAM_PER_FRAME_FRAMES}): {json.dumps(steady)}")
     stamp("nice-slam@protocol-per-frame run")
     del pipeline
     torch.cuda.empty_cache()
@@ -2362,6 +2546,42 @@ def niceslam_protocol() -> None:
                              tag="@protocol200", config=niceslam_protocol_config(office_bounds(office)))
     protocol_row(pipeline, res["ate_rmse_cm"], "nice-slam")
     stamp("nice-slam protocol row")
+
+
+def voxfusion_runs(office: str) -> dict:
+    """Vox-Fusion's main path, the registry's entry on 60 office frames,
+    through groups (gated, schedule, voxels, frame 0's insertion against the
+    host allocator, replay check, outputs, profile), then per frame (gated
+    as VOXFUSION_PER_FRAME_NOTE says; finite poses, schedule, no groups);
+    ``[steady]``. Returns K4's launches of the group
+    run under its record's name."""
+    import torch
+
+    data = f"n_frames={VOXFUSION_FRAMES},{office}"
+    pipeline, res = run_slam("vox-fusion", data, ("scatter_add",), ate_limit_cm=ATE_LIMIT_CM, tag="@registry")
+    check_voxfusion_run(pipeline, res, groups=True)
+    launches = {"scatter_add[vox-fusion]": res["launches"]["scatter_add"]}
+    steady = {"vox-fusion@registry": [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]}
+    check_voxel_insertion(pipeline)
+    check_group_replay(pipeline, "vox-fusion@registry", exact=False)
+    check_outputs(pipeline, "vox-fusion@registry")
+    profile_steps(pipeline, "vox-fusion@registry")
+    stamp("vox-fusion@registry run, insertion and replay checks, outputs and profile")
+    del pipeline
+    torch.cuda.empty_cache()
+    os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
+    try:
+        pipeline, res = run_slam("vox-fusion", data, ("scatter_add",), ate_limit_cm=ATE_LIMIT_CM,
+                                 tag="@registry-per-frame", frozen_share=VOXFUSION_PER_FRAME_FROZEN_SHARE)
+    finally:
+        del os.environ["XRDSLAM_DISABLE_SUPER"]
+    check_voxfusion_run(pipeline, res, groups=False)
+    steady["vox-fusion@registry-per-frame"] = [res["steady_s_per_frame"], None]
+    print(f"[steady] Vox-Fusion s/frame, by the steady rule and the median group frame: {json.dumps(steady)}")
+    stamp("vox-fusion@registry-per-frame run")
+    del pipeline
+    torch.cuda.empty_cache()
+    return launches
 
 
 T0 = time.perf_counter()
@@ -2410,7 +2630,7 @@ def main(argv) -> None:
         niceslam_protocol()
         return
     repeats = dict(zip(argv[::2], argv[1::2]))
-    repeat_flags = ("--pointslam-repeat", "--protocol-repeat", "--niceslam-seeds")
+    repeat_flags = ("--pointslam-repeat", "--protocol-repeat", "--niceslam-seeds", "--voxfusion-seeds")
     if argv and len(argv) % 2 == 0 and set(repeats) <= set(repeat_flags):
         repeat_runs(*(int(repeats.get(k, 0)) for k in repeat_flags))
         return
@@ -2435,6 +2655,8 @@ def main(argv) -> None:
     stamp("hash-grid kernels checked")
     records += check_scatter_niceslam(device)
     stamp("K4 at NICE-SLAM's shapes checked")
+    records += check_scatter_voxfusion(device)
+    stamp("K4 at Vox-Fusion's shape checked")
     records += check_raster(device)
     stamp("rasterizer kernels checked")
     records += check_point_table(device)
@@ -2533,7 +2755,7 @@ def main(argv) -> None:
     steady = {"splaTAM@k512": [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]}
     check_group_replay(pipeline, "splaTAM@k512", exact=False, spread=True)
     order_choice(pipeline)
-    profile_splatam(pipeline, "splaTAM@k512")
+    profile_steps(pipeline, "splaTAM@k512")
     stamp("splaTAM@k512 run, replay check and profile")
     del pipeline
     torch.cuda.empty_cache()
@@ -2554,7 +2776,7 @@ def main(argv) -> None:
     check_splatam_run(pipeline, res, groups=True)
     launches.update(res["launches"])
     steady["splaTAM"] = [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]
-    profile_splatam(pipeline)
+    profile_steps(pipeline, "splaTAM")
     stamp("splaTAM run and profile")
     del pipeline
     torch.cuda.empty_cache()
@@ -2585,6 +2807,7 @@ def main(argv) -> None:
     del pipeline
     torch.cuda.empty_cache()
     launches.update(niceslam_runs(office, bounds))
+    launches.update(voxfusion_runs(office))
     for r in records:
         counter = r.pop("counter")
         r["launches"] = 0 if counter is None else launches[counter]

@@ -248,18 +248,7 @@ class CoSLAM(Algorithm):
     # ------------------------------------------------------------------
     # the fused group step
     # ------------------------------------------------------------------
-    @staticmethod
-    def _predict(t1: torch.Tensor, r1: torch.Tensor, t2: torch.Tensor, r2: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The constant-velocity model on the device, from the last pose
-        (t1, r1) and the one before it: delta = P1 inv(P2), pred = delta P1.
-        Unlike the host's ``predict_current_pose`` it takes no SVD and no
-        finite check, as the reference package's group program."""
-        R1 = lie.axis_angle_to_matrix(r1)
-        R2 = lie.axis_angle_to_matrix(r2)
-        dR = R1 @ R2.T
-        dt = t1 - dR @ t2
-        return dR @ t1 + dt, lie.matrix_to_axis_angle(dR @ R1)
+    _predict = staticmethod(lie.predict_constant_velocity)
 
     def super_step(self, rgbs: Sequence[torch.Tensor], depths: Sequence[torch.Tensor], prev_t: torch.Tensor,
                    prev_r: torch.Tensor, prev2_t: torch.Tensor, prev2_r: torch.Tensor, do_kf: bool, cur_cap: int

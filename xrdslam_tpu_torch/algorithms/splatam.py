@@ -56,6 +56,7 @@ from ..engine.optimizers import GroupOptimizers
 from ..models.gaussian_splatting import GAUSS_GROUPS, GaussianSplatting, GaussianSplattingConfig
 from ..ops import lie, lie_np
 from ..ops.gaussian_raster import TILE, Binning, WindowBinning, bin_gaussians_device
+from ..ops.scatter import scatter_rows
 from .base import Algorithm, AlgorithmConfig
 
 Params = Dict[str, torch.Tensor]
@@ -70,14 +71,6 @@ class SplaTAMConfig(AlgorithmConfig):
     # clone/split densification during mapping, at model.mapping_densify_dict's schedule
     mapping_use_gaussian_splatting_densification: bool = False
     seed: int = 0
-
-
-def _scatter_rows(dst: torch.Tensor, dest: torch.Tensor, rows: torch.Tensor) -> None:
-    """``dst[dest[i]] = rows[i]`` in place; entries with ``dest[i] ==
-    len(dst)`` are dropped (they land in a spare row)."""
-    buf = torch.cat([dst, dst[:1]])
-    buf.index_copy_(0, dest, rows.to(dst.dtype))
-    dst.copy_(buf[:-1])
 
 
 def median_of_positive(x: torch.Tensor) -> torch.Tensor:
@@ -326,8 +319,8 @@ class SplaTAM(Algorithm):
         rows = {"means3D": pts, "rgb_colors": rgb.reshape(-1, 3), "logit_opacities": torch.zeros_like(d)[:, None],
                 "log_scales": torch.log(torch.clamp(d / self.model._f, min=1e-6))[:, None]}
         for g, r in rows.items():
-            _scatter_rows(params[g], dest, r)
-        _scatter_rows(dead, dest, torch.zeros_like(m))
+            scatter_rows(params[g], dest, r)
+        scatter_rows(dead, dest, torch.zeros_like(m))
         return params, dead, torch.clamp(count + ok.sum(), max=G)
 
     @torch.no_grad()

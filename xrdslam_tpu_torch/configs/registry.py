@@ -4,9 +4,11 @@ Counterpart of ``xrdslam_tpu/configs/registry.py`` for the ported
 algorithms, with the reference package's hyperparameters: Co-SLAM (the
 reference's entry: the packed patch-row hash, per-scene bounds of Replica
 office0, CLI-overridable; the ``embed_fn_color`` optimizer group is left
-out while ``oneGrid=False`` is not ported), SplaTAM, and Point-SLAM (its
-decoders train from scratch: the pretrained ``middle_fine.pt`` that the
-reference entry names is not in the repository). Knobs that nothing in the
+out while ``oneGrid=False`` is not ported), NICE-SLAM, SplaTAM,
+Point-SLAM (its decoders train from scratch: the pretrained
+``middle_fine.pt`` that the reference entry names is not in the
+repository) and Vox-Fusion (its random window is the only keyframe
+selection it has). Knobs that nothing in the
 port reads yet are left out of each entry.
 """
 from __future__ import annotations
@@ -18,6 +20,7 @@ from ..algorithms.coslam import CoSLAMConfig
 from ..algorithms.nice_slam import NiceSLAMConfig
 from ..algorithms.point_slam import PointSLAMConfig
 from ..algorithms.splatam import SplaTAMConfig
+from ..algorithms.voxfusion import VoxFusionConfig
 from ..common.mesher import MesherConfig
 from ..engine.optimizers import AdamOptimizerConfig
 from ..engine.runner import RunnerConfig
@@ -26,6 +29,7 @@ from ..models.conv_onet import ConvOnetConfig
 from ..models.conv_onet_pointslam import ConvOnet2Config
 from ..models.gaussian_splatting import GaussianSplattingConfig
 from ..models.joint_encoding import JointEncodingConfig
+from ..models.sparse_voxel import SparseVoxelConfig
 from ..pipeline.slam import MapperConfig, SLAMPipelineConfig, TrackerConfig
 
 algorithm_configs: Dict[str, RunnerConfig] = {}
@@ -35,6 +39,7 @@ descriptions = {
     "nice-slam": "Implementation of nice-slam (dense feature grids; K4 as their gradient).",
     "splaTAM": "Implementation of splaTAM (tile rasterizer, CUDA kernels).",
     "point-slam": "Implementation of point-slam (spatial-hash kNN with a CUDA row gather).",
+    "vox-fusion": "Implementation of vox-fusion (device voxel hash; K4 as its embeddings' gradient).",
 }
 
 algorithm_configs["co-slam"] = RunnerConfig(
@@ -170,6 +175,32 @@ algorithm_configs["point-slam"] = RunnerConfig(
                 "geometry": {"optimizer": AdamOptimizerConfig(), "scheduler": PointSLAMSchedulerConfig(start_lr=0.03, end_lr=0.005)},
                 "color": {"optimizer": AdamOptimizerConfig(), "scheduler": PointSLAMSchedulerConfig(start_lr=0.0, end_lr=0.005)},
                 "tracking_pose": {"optimizer": AdamOptimizerConfig(lr=2e-3), "scheduler": None},
+            },
+        ),
+    ),
+)
+
+algorithm_configs["vox-fusion"] = RunnerConfig(
+    algorithm_name="vox-fusion",
+    xrdslam=SLAMPipelineConfig(
+        tracker=TrackerConfig(map_every=1, use_relative_pose=True, save_debug_result=False, init_pose_offset=10),
+        mapper=MapperConfig(keyframe_every=50),
+        algorithm=VoxFusionConfig(
+            rot_rep="axis_angle",
+            tracking_n_iters=30,
+            mapping_n_iters=15,
+            mapping_first_n_iters=30,
+            mapping_window_size=5,
+            mapping_sample=1024,
+            tracking_sample=1024,
+            ray_batch_size=3072,
+            max_keyframes=64,
+            model=SparseVoxelConfig(),
+            optimizers={
+                "decoder": {"optimizer": AdamOptimizerConfig(lr=5e-3), "scheduler": None},
+                "embeddings": {"optimizer": AdamOptimizerConfig(lr=5e-3), "scheduler": None},
+                "tracking_pose": {"optimizer": AdamOptimizerConfig(lr=1e-2), "scheduler": None},
+                "mapping_pose": {"optimizer": AdamOptimizerConfig(lr=1e-3), "scheduler": None},
             },
         ),
     ),

@@ -1,14 +1,17 @@
 """SO(3) and pose conversions on tensors, differentiable.
 
-Counterpart of the parts of ``xrdslam_tpu/ops/lie.py`` that Co-SLAM and
-SplaTAM use: axis-angle and quaternion rotations, pose vectors to 4x4
-matrices and rigid inverses.
+Counterpart of the parts of ``xrdslam_tpu/ops/lie.py`` that the ported
+algorithms use: axis-angle and quaternion rotations, pose vectors to 4x4
+matrices and rigid inverses, and the device constant-velocity prediction
+of Co-SLAM's and Vox-Fusion's fused steps.
 Small-angle neighbourhoods use Taylor expansions selected with
 ``torch.where``; the unselected branch is evaluated too, so every branch
 keeps its argument away from 0 (``maximum(theta2, _EPS)``) and no NaN
 reaches the gradient. Quaternions are ``(w, x, y, z)``, scalar first.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -116,6 +119,19 @@ def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
         torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
         torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
     ], -2)
+
+
+def predict_constant_velocity(t1: torch.Tensor, r1: torch.Tensor, t2: torch.Tensor, r2: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The constant-velocity model on the device, from the last pose (t1,
+    r1 axis-angle) and the one before it: delta = P1 inv(P2), pred = delta
+    P1. Unlike the pipeline's host prediction it takes no SVD and no finite
+    check, as the reference package's device programs."""
+    R1 = axis_angle_to_matrix(r1)
+    R2 = axis_angle_to_matrix(r2)
+    dR = R1 @ R2.T
+    dt = t1 - dR @ t2
+    return dR @ t1 + dt, matrix_to_axis_angle(dR @ R1)
 
 
 def pose_vec_to_matrix(t: torch.Tensor, r: torch.Tensor, rot_rep: str = "axis_angle") -> torch.Tensor:

@@ -37,9 +37,15 @@ def sdf_masks(z_vals: torch.Tensor, target_d: torch.Tensor, truncation: float,
 
 
 def sdf_losses(z_vals: torch.Tensor, target_d: torch.Tensor, predicted_sdf: torch.Tensor, truncation: float,
-               ray_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(fs_loss, sdf_loss), l2, divided by (#valid rays * S)."""
+               ray_mask: Optional[torch.Tensor] = None, sample_mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(fs_loss, sdf_loss), l2, divided by (#valid rays * S). ``sample_mask``
+    [N, S] also drops padded samples (Vox-Fusion's samples outside every
+    voxel); the weights are formed before it, as the reference's."""
     front_mask, sdf_mask, fs_weight, sdf_weight = sdf_masks(z_vals, target_d, truncation, ray_mask)
+    if sample_mask is not None:
+        front_mask = front_mask * sample_mask
+        sdf_mask = sdf_mask * sample_mask
     n, s = z_vals.shape
     if ray_mask is None:
         denom = z_vals.new_full((), float(n * s))

@@ -21,6 +21,8 @@ A CUDA tensor goes to the kernel, which raises if it cannot build or
 launch; a CPU tensor goes to ``scatter_add_torch`` (``index_add_``), or,
 with an ordering, to ``scatter_add_sorted_torch``.
 Indices outside ``[0, num_rows)`` are dropped by both, as JAX drops them.
+``scatter_rows`` is a plain row copy with the same rule for its one
+dropped index, JAX's ``.at[dest].set(rows, mode="drop")``.
 ``LAUNCHES["scatter_add"]`` counts launches of the summing kernel,
 ``LAUNCHES["scatter_order"]`` those of the row-pointer search;
 ``LAUNCHES_BY_ROWS`` splits the summing kernel's by the rows of the table
@@ -63,6 +65,15 @@ class ScatterOrder(NamedTuple):
     row_ptr: torch.Tensor
     num_rows: int
     slots: int
+
+
+def scatter_rows(dst: torch.Tensor, dest: torch.Tensor, rows: torch.Tensor) -> None:
+    """``dst[dest[i]] = rows[i]`` in place, for distinct ``dest[i] <
+    len(dst)``; entries with ``dest[i] == len(dst)`` are dropped (they land
+    in a spare row of a temporary copy)."""
+    buf = torch.cat([dst, dst[:1]])
+    buf.index_copy_(0, dest, rows.to(dst.dtype))
+    dst.copy_(buf[:-1])
 
 
 def scatter_add_torch(idx: torch.Tensor, g: torch.Tensor, num_rows: int) -> torch.Tensor:

@@ -23,7 +23,14 @@ reference Point-SLAM ``params`` tree (``{"geometry": {"feats"}, "color":
 Z, C], and ``decoder``: ``{name: decoder tree}`` for the trainable
 decoders, the coarse one without ``B`` and ``fc_*``) and, for decoders the
 reference keeps frozen, its ``frozen`` dict; copies both into a
-``ConvOnet``.
+``ConvOnet``. ``voxfusion_params_from_jax`` takes the reference Vox-Fusion
+``model_params`` tree (``{"embeddings": {"table"}, "decoder": {"pts":
+[...], "sdf_out", "color0", "color1"}}``, each layer ``{"w", "b"}``) and
+copies it into a ``SparseVoxel``; ``voxfusion_state_from_jax`` copies the
+reference's device voxel maps (the dict of ``empty_device_maps`` /
+``insert_marked``, or of ``VoxelHashMap.device_state``, whose vertex hash
+is left as it is) into a port ``VoxFusion``'s ``maps`` in place (the
+same keys, shapes and dtypes).
 """
 from __future__ import annotations
 
@@ -36,9 +43,11 @@ from ..models.conv_onet import ConvOnet, MLPDecoder
 from ..models.conv_onet_pointslam import ConvOnet2
 from ..models.gaussian_splatting import GAUSS_GROUPS
 from ..models.joint_encoding import JointEncoding
+from ..models.sparse_voxel import SparseVoxel
 
 if TYPE_CHECKING:
     from ..algorithms.splatam import SplaTAM
+    from ..algorithms.voxfusion import VoxFusion
 
 
 def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
@@ -145,3 +154,27 @@ def niceslam_params_from_jax(np_tree: Dict[str, Any], model: ConvOnet,
     for name, dec in model.decoders.items():
         _decoder(dec, trees[name], f"decoder.{name}")
     return model
+
+
+@torch.no_grad()
+def voxfusion_params_from_jax(np_tree: Dict[str, Any], model: SparseVoxel) -> SparseVoxel:
+    _copy(model.embeddings, np_tree["embeddings"]["table"], "embeddings.table")
+    dec = np_tree["decoder"]
+    if len(dec["pts"]) != len(model.pts):
+        raise ValueError(f"decoder.pts: {len(dec['pts'])} layers, the model has {len(model.pts)}")
+    for i, (layer, tree) in enumerate(zip(model.pts, dec["pts"])):
+        _linear(layer, tree["w"], tree["b"], f"decoder.pts[{i}]")
+    for name in ("sdf_out", "color0", "color1"):
+        _linear(getattr(model, name), dec[name]["w"], dec[name]["b"], f"decoder.{name}")
+    return model
+
+
+@torch.no_grad()
+def voxfusion_state_from_jax(algo: "VoxFusion", np_maps: Dict[str, Any]) -> "VoxFusion":
+    for k, v in np_maps.items():
+        dst = algo.maps[k]
+        src = torch.from_numpy(np.array(v))
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(f"maps.{k}: {src.dtype} {tuple(src.shape)} does not fit {dst.dtype} {tuple(dst.shape)}")
+        dst.copy_(src)
+    return algo
