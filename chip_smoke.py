@@ -61,8 +61,9 @@
    twice and its graph replayed once, the replay held to the eager
    group's bits (the exact hash: poses, losses and keyframe rows within
    ``GRAPH_EXACT_TOL``) and to its launches. Then the packed-hash run
-   again with ``XRDSLAM_DISABLE_SUPER=1`` (every frame per frame, gated
-   the same), and a ``[steady]`` line with the four runs' steady s/frame;
+   again on its first 20 frames with ``XRDSLAM_DISABLE_SUPER=1`` (every
+   frame per frame, gated the same), and a ``[steady]`` line with the four
+   runs' steady s/frame;
    SplaTAM on the office at 600x340 for 20 frames with the registry's
    settings but 512 slots per tile (gated), through the group path
    (frames 2-18, each one CUDA graph replay of the fused step, keyed
@@ -116,7 +117,17 @@
    Vox-Fusion's shape, on the ids and upstream gradient of the last
    iteration of the first mapping call on office frame 0 (819,200 ids
    into 20,000 x 16; voxel 0's 8 rows, where the segments that hit no
-   voxel point, hold most of them). A
+   voxel point, hold most of them). DPVO on the committed trained weights
+   (``pretrained/dpvo_synth.npz``): ``tests/test_dpvo_trained.py``'s run
+   (the office at 160x120, 40 frames, 48 patches; gated at its sim(3) ATE
+   of 2 cm alone) and the registry's entry at 600x340 for 40 frames (96
+   patches, every frame accepted before initialisation and kept, so the
+   edge graph grows to the registry's steady ~53,000 edges in a bucket of
+   65,536: ``DPVO_REGISTRY``; its sim(3) ATE reported), each with K4's
+   launches equal to ``dpvo_schedule`` (12 an update, 4 a motion probe),
+   K4 held to its twin and timed at the registry run's SoftAgg and
+   bundle-adjuster shapes (the largest DPVO gives it) on one update at its
+   last state, and that run's update profiled by stage. A
    gated run's ATE must be at most
    10 cm and at most half that of a camera frozen at frame 0
    (``FROZEN_ATE_SHARE``). Every pose must be finite and every kernel of
@@ -143,6 +154,12 @@ SSIM, depth-L1 of ``render_img`` every 50 frames; accuracy, completion
 and its ratio of the culled mesh) beside the JAX package's row of
 ``BENCH_ACCURACY.json`` and ``bench_accuracy.py``'s gates for NICE-SLAM;
 reported, not gated (only finiteness fails it); no result line.
+
+    python3 chip_smoke.py --dpvo
+
+builds the kernels and runs DPVO's part of the default run alone (its two
+runs, K4 at its shapes, the profile), then prints the kernels line of its
+K4 records; no result line.
 
     python3 chip_smoke.py --slots-probe
 
@@ -212,6 +229,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 COSLAM_FRAMES = 60
+# the packed hash's per-frame A/B runs the first 20 of those frames: the
+# smoke's DPVO runs took the time the other 40 took
+COSLAM_PER_FRAME_FRAMES = 20
 PROTOCOL_FRAMES = 200  # bench_accuracy.py's sequence
 PROTOCOL_RENDER_FREQ = 50  # bench_accuracy.py's default render_freq
 SPLATAM_FRAMES = 20
@@ -273,6 +293,30 @@ SLOTS_PROBE = {
 N_MAP = 176_128  # (2048 keyframe + 2048 current rays) x 43 samples
 N_TRACK = 44_032  # 1024 rays x 43 samples
 HEIGHT, WIDTH = 340, 600
+# DPVO: tests/test_dpvo_trained.py's configuration of the registry's entry
+# on the committed trained weights (the office at 160x120, 40 frames,
+# gated at its sim(3) ATE bound), then the registry's entry at 600x340 on
+# the same weights, which were trained at 160x120 (its ATE reported), with
+# two changes, the test's. Every frame is accepted before initialisation:
+# at the registry's motion_init_thresh of 2 px no frame is, as the motion
+# probe's median runs over the padded edge table, 96 real edges in a bucket
+# of 2,048, so it is the padded edges' constant |d.bias| (0.050 px on these
+# weights) in either package (PERF.md, Findings). And every frame is kept
+# (keyframe_thresh 0.01): at the registry's 15 px the office tour's slow
+# motion drops frame n - 5 after every frame, the window stays at 8 frames
+# and 6,144 edges, and the registry's steady edge graph (22 frames of 96
+# patches, ~53,000 edges in a bucket of 65,536) never forms
+DPVO_WEIGHTS = os.path.join(ROOT, "pretrained", "dpvo_synth.npz")
+DPVO_FRAMES = 40
+DPVO_TRAINED_DATA = f"n_frames={DPVO_FRAMES},height=120,width=160,scene=office"
+DPVO_TRAINED = {"algorithm.patch_per_frame": 48, "algorithm.patch_lifetime": 13, "algorithm.init_frame_num": 8,
+                "algorithm.optimization_window": 10, "algorithm.removal_window": 16, "algorithm.keyframe_index": 4,
+                "algorithm.keyframe_thresh": 0.01, "algorithm.buffer_size": 512, "algorithm.mem": 24,
+                "algorithm.edge_chunk": 2048, "algorithm.motion_init_thresh": 0.0,
+                "algorithm.model.pretrained_path": DPVO_WEIGHTS}
+DPVO_REGISTRY = {"algorithm.model.pretrained_path": DPVO_WEIGHTS, "algorithm.motion_init_thresh": 0.0,
+                 "algorithm.keyframe_thresh": DPVO_TRAINED["algorithm.keyframe_thresh"]}
+DPVO_ATE_LIMIT_CM = 2.0
 ATE_LIMIT_CM = 10.0
 # A gated run must also score at most this share of the ATE of a camera
 # that never moves (every pose frame 0's): the office tour moves 0.6 cm a
@@ -1924,7 +1968,7 @@ def check_voxel_insertion(pipeline) -> None:
 # ---------------------------------------------------------------------------
 
 def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_cm=None, tag: str = "", config=None,
-             frozen_share: float = None):
+             frozen_share: float = None, correct_scale: bool = False):
     """One algorithm through the port's runner on synthetic ``data`` with
     the registry's settings and ``overrides`` ({dotted config path under
     ``xrdslam``: value}); returns (pipeline, results). The launch counts
@@ -1932,7 +1976,10 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     ``counters`` must have moved. Poses must be finite; where
     ``ate_limit_cm`` is given, the ATE must be at most that and at most
     ``frozen_share`` (by default ``FROZEN_ATE_SHARE``) of the ATE of a
-    camera frozen at frame 0. ``config`` replaces the registry's entry."""
+    camera frozen at frame 0. ``config`` replaces the registry's entry.
+    ``correct_scale`` aligns the trajectory in sim(3), as monocular VO has
+    no scale (the frozen camera's ATE stays in SE(3): a constant trajectory
+    has no scale to align)."""
     import torch
 
     from xrdslam_tpu_torch.configs.registry import algorithm_configs
@@ -1951,13 +1998,16 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
         for p in parents:
             node = getattr(node, p)
         setattr(node, leaf, value)
+    t_setup = time.time()
     runner = cfg.setup()
     pipeline = runner.setup()
     n_frames = len(pipeline.dataset)
     t0 = time.time()
     pipeline.dataset.prerender()
     torch.cuda.synchronize()
-    print(f"[slam] {name}: rendered {n_frames} frames ({data}) in {time.time() - t0:.3f} s")
+    reused = pipeline.dataset.n_shared
+    print(f"[slam] {name}: {n_frames} frames ({data}): rendered {n_frames - reused}, took {reused} as an earlier run "
+          f"rendered them, in {time.time() - t0:.3f} s (set-up {t0 - t_setup:.3f} s)")
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
     t0 = time.time()
@@ -1971,10 +2021,11 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     est = algo.estimate_c2w_list
     if len(est) != n_frames or algo._nonfinite_poses or not all(np.isfinite(p).all() for p in est):
         raise RuntimeError(f"{name}: non-finite or missing poses ({algo._nonfinite_poses} non-finite of {len(est)})")
-    ate_cm = evaluate_ate(algo.gt_c2w_list, est)["rmse"] * 100.0
+    ate_cm = evaluate_ate(algo.gt_c2w_list, est, correct_scale=correct_scale)["rmse"] * 100.0
     frozen_cm = evaluate_ate(algo.gt_c2w_list, [algo.gt_c2w_list[0]] * n_frames)["rmse"] * 100.0
     res = {"run": name, "data": data, "overrides": overrides or {}, "frames": n_frames, "wall_s": wall,
-           "ate_rmse_cm": ate_cm, "frozen_ate_cm": frozen_cm, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "ate_rmse_cm": ate_cm, "ate_sim3": correct_scale, "frozen_ate_cm": frozen_cm,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": launches, "keyframes": len(algo.keyframe_fids),
            # translation error of each frame before alignment (cm)
            "frame_err_cm": [round(float(np.linalg.norm(e[:3, 3] - g[:3, 3])) * 100, 3)
@@ -1990,6 +2041,10 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     if algorithm == "splaTAM":
         res["gaussians"] = algo.n_gauss
         res["gaussians_alive"] = int(algo.model.alive_mask(algo.dead, algo.n_gauss).sum())
+    if algorithm == "dpvo":
+        res.update(updates=algo.n_updates, probes=algo.n_probes, frames_kept=algo.n, edges_end=len(algo.ii),
+                   updates_by_bucket={str(k): v for k, v in sorted(algo.buckets.items())},
+                   weights=algo.model.loaded_from)
     if algorithm == "point-slam":
         res["n_points"] = algo.point_map.n_points
         res["overflowed"] = algo.point_map.overflowed
@@ -2001,9 +2056,9 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     if ate_limit_cm is not None:
         share = FROZEN_ATE_SHARE if frozen_share is None else frozen_share
         limit = min(ate_limit_cm, share * frozen_cm)
-        print(f"[gate] {name}: ATE {ate_cm:.4f} cm against {limit:.4f} cm (the smaller of {ate_limit_cm} cm and "
-              f"{share} x {frozen_cm:.4f} cm, the ATE of a camera frozen at frame 0)")
-        if ate_cm > limit:
+        print(f"[gate] {name}: {'sim(3) ' if correct_scale else ''}ATE {ate_cm:.4f} cm against {limit:.4f} cm (the "
+              f"smaller of {ate_limit_cm} cm and {share} x {frozen_cm:.4f} cm, the ATE of a camera frozen at frame 0)")
+        if not ate_cm <= limit:  # a NaN fails too (a sim(3) alignment of a constant trajectory)
             raise RuntimeError(f"{name}: ATE {ate_cm:.3f} cm > {limit:.3f} cm")
     if algorithm == "splaTAM" and not 0 < algo.n_gauss <= algo.config.model.max_gaussians:
         raise RuntimeError(f"{name}: gaussian count {algo.n_gauss} outside (0, {algo.config.model.max_gaussians}]")
@@ -2584,6 +2639,135 @@ def voxfusion_runs(office: str) -> dict:
     return launches
 
 
+def dpvo_schedule(algo) -> int:
+    """K4 launches of a DPVO run: ``UPDATE_SCATTERS`` an update (4 in the
+    update operator, 4 in each of the bundle adjuster's 2 iterations),
+    ``PROBE_SCATTERS`` a motion probe (the update operator's)."""
+    from xrdslam_tpu_torch.algorithms.dpvo import PROBE_SCATTERS, UPDATE_SCATTERS
+
+    return UPDATE_SCATTERS * algo.n_updates + PROBE_SCATTERS * algo.n_probes
+
+
+def check_dpvo_run(pipeline, res: dict) -> None:
+    """A DPVO run's K4 launches against ``dpvo_schedule``, and its weights:
+    the committed checkpoint must have loaded."""
+    algo = pipeline.algorithm
+    want = dpvo_schedule(algo)
+    print(f"[launches] {res['run']}: {json.dumps(res['launches'])}; schedule scatter_add {want} "
+          f"({algo.n_updates} updates, {algo.n_probes} probes)")
+    if res["launches"]["scatter_add"] != want:
+        raise RuntimeError(f"{res['run']}: scatter_add launches {res['launches']['scatter_add']} != {want}")
+    if algo.model.loaded_from != DPVO_WEIGHTS:
+        raise RuntimeError(f"{res['run']}: the weights {DPVO_WEIGHTS} did not load ({algo.model.loaded_from!r})")
+
+
+def dpvo_update_calls(algo):
+    """The scatter_add calls of one update at ``algo``'s state (the update
+    is made): [(idx, g, rows)]."""
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    calls, shipped = [], sc.scatter_add
+
+    def keep(idx, g, rows):
+        calls.append((idx.detach().clone(), g.detach().clone(), rows))
+        return shipped(idx, g, rows)
+
+    sc.scatter_add = keep
+    try:
+        algo.update()
+    finally:
+        sc.scatter_add = shipped
+    return calls
+
+
+def check_scatter_dpvo(pipeline, res: dict) -> list:
+    """K4 at a DPVO run's two largest shapes, on the ids and sums of one
+    update at its last state: SoftAgg's (E padded edges x 384 into E + 1
+    rows) and the bundle adjuster's E blocks (2E x 6 into m n rows, m the
+    window's patches, n its frames). Returns the records; their launches
+    are the run's at those rows (K4's count by the rows it sums into)."""
+    algo = pipeline.algorithm
+    calls = dpvo_update_calls(algo)
+    W, M = algo.W_BA, algo.M
+    soft = next(c for c in calls if c[1].shape[1] == algo.DIM)
+    ep = next(c for c in calls if c[2] == W * M * W)
+    records = []
+    for what, (idx, g, rows) in (("softagg", soft), ("ba-ep", ep)):
+        name = f"scatter_add[{res['run']} {what}]"
+        per_row = np.bincount(idx.cpu().numpy(), minlength=rows)
+        launches = res["scatter_add_by_rows"].get(str(rows), 0)
+        print(f"[dpvo] {name}: {idx.shape[0]} ids x {g.shape[1]} into {rows} rows; {int((per_row > 0).sum())} "
+              f"rows hit, the longest {int(per_row.max())}; launches at these rows in the run: {launches}")
+        rec = scatter_case(name, idx, g, rows, algo.device)
+        records.append({"name": name, "route": "cuda", "source": "xrdslam_tpu_torch/kernels/scatter.cu",
+                        "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": name,
+                        "shape": [int(idx.shape[0]), int(g.shape[1]), rows], "run_launches": launches, **rec})
+    return records
+
+
+def profile_dpvo(pipeline, name: str) -> None:
+    """One update at the run's last state, whole (host graph, uploads,
+    device work, readback) and by stage: the host half (``inputs``), the
+    two encoders on the last frame (``encoders``), the correlation, the
+    update operator and the bundle adjuster, each on the same inputs."""
+    import torch
+
+    from xrdslam_tpu_torch.common.frame import upload
+
+    algo = pipeline.algorithm
+    _, rgb, _, _ = pipeline.dataset[len(pipeline.dataset) - 1]
+    img = upload(np.ascontiguousarray(rgb[: algo.ht, : algo.wd].transpose(2, 0, 1), np.float32), algo.device)
+    centers = torch.rand((algo.M, 2), device=algo.device) * torch.tensor([algo.w4 - 2, algo.h4 - 2],
+                                                                         device=algo.device) + 1
+    inp = algo.update_inputs()
+    with torch.no_grad():
+        coords, corr = algo.correlate(inp)
+        _, delta, weight = algo.operator(inp, corr)
+    print(f"[dpvo] {name} profiled state: {inp['E_real']} edges in a bucket of {inp['E']}, {algo.n} frames")
+    with torch.no_grad():
+        profile(name, {"update": algo.update, "inputs": algo.update_inputs,
+                       "encoders": lambda: algo.detect(img, centers), "correlation": lambda: algo.correlate(inp),
+                       "operator": lambda: algo.operator(inp, corr),
+                       "ba": lambda: algo.adjust(inp, coords, delta, weight)})
+
+
+def dpvo_runs(office: str) -> tuple:
+    """DPVO on the committed trained weights: ``tests/test_dpvo_trained.py``'s
+    run (gated at its sim(3) ATE bound), then the registry's entry at
+    600x340 (``DPVO_REGISTRY``; finite poses; ATE reported), each with K4's
+    launches held to ``dpvo_schedule``; K4 checked at DPVO's two largest
+    shapes, the registry run's at its last state (22 frames of edges in a
+    bucket of 65,536); the registry run's profile. Returns (the records,
+    their launches by name)."""
+    import torch
+
+    # the JAX test's gate alone: its sim(3) ATE against an SE(3) frozen
+    # camera's would mix two alignments
+    pipeline, res = run_slam("dpvo", DPVO_TRAINED_DATA, ("scatter_add",), overrides=DPVO_TRAINED,
+                             ate_limit_cm=DPVO_ATE_LIMIT_CM, tag="@trained", frozen_share=float("inf"),
+                             correct_scale=True)
+    check_dpvo_run(pipeline, res)
+    steady = {"dpvo@trained": res.get("steady_s_per_frame")}
+    stamp("dpvo@trained run")
+    del pipeline
+    torch.cuda.empty_cache()
+    pipeline, res = run_slam("dpvo", f"n_frames={DPVO_FRAMES},{office}", ("scatter_add",),
+                             overrides=DPVO_REGISTRY, tag="@registry", correct_scale=True)
+    check_dpvo_run(pipeline, res)
+    steady["dpvo@registry"] = res.get("steady_s_per_frame")
+    print(f"[dpvo] registry run: sim(3) ATE {res['ate_rmse_cm']:.4f} cm (reported), {res['edges_end']} edges at "
+          f"the end, updates by bucket {json.dumps(res['updates_by_bucket'])}, peak {res['peak_mem_gib']:.3f} GiB")
+    print(f"[steady] DPVO s/frame by the steady rule: {json.dumps(steady)}")
+    stamp("dpvo@registry run")
+    records = check_scatter_dpvo(pipeline, res)
+    stamp("K4 at dpvo@registry's shapes")
+    profile_dpvo(pipeline, "dpvo@registry")
+    stamp("dpvo@registry profile")
+    del pipeline
+    torch.cuda.empty_cache()
+    return records, {r["counter"]: r.pop("run_launches") for r in records}
+
+
 T0 = time.perf_counter()
 
 
@@ -2597,12 +2781,13 @@ def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available")
     from xrdslam_tpu_torch import kernels
-    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
+    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset, keep_renders
     from xrdslam_tpu_torch.configs.registry import algorithm_configs
     from xrdslam_tpu_torch.models.joint_encoding import JointEncoding
     from xrdslam_tpu_torch.pipeline.slam import resolve_device
 
     device = resolve_device("cuda")
+    keep_renders()  # a run takes the frames an earlier run of the same scene and size traced
     card = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -2628,6 +2813,12 @@ def main(argv) -> None:
         return
     if argv == ["--niceslam-protocol"]:
         niceslam_protocol()
+        return
+    if argv == ["--dpvo"]:
+        records, launches = dpvo_runs(f"height={HEIGHT},width={WIDTH},scene=office")
+        for r in records:
+            r["launches"] = launches[r.pop("counter")]
+        print(json.dumps({"kernels": records}))
         return
     repeats = dict(zip(argv[::2], argv[1::2]))
     repeat_flags = ("--pointslam-repeat", "--protocol-repeat", "--niceslam-seeds", "--voxfusion-seeds")
@@ -2728,11 +2919,13 @@ def main(argv) -> None:
         stamp(f"co-slam{tag} run and profile")
         del pipeline, model
         torch.cuda.empty_cache()
-    # the registry's default again, every frame through the per-frame path
-    # (the A/B hatch): the per-frame steady s/frame beside the group path's
+    # the registry's default again on its first COSLAM_PER_FRAME_FRAMES
+    # frames, every frame through the per-frame path (the A/B hatch): the
+    # per-frame steady s/frame beside the group path's
     os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
     try:
-        pipeline, res = run_slam("co-slam", coslam_data, ("scatter_add",), bench, ATE_LIMIT_CM, tag="@packed-per-frame")
+        pipeline, res = run_slam("co-slam", f"n_frames={COSLAM_PER_FRAME_FRAMES},{office}", ("scatter_add",), bench,
+                                 ATE_LIMIT_CM, tag="@packed-per-frame")
     finally:
         del os.environ["XRDSLAM_DISABLE_SUPER"]
     want = coslam_scatter_schedule(algorithm_configs["co-slam"], res["frames"], "packed")
@@ -2808,6 +3001,9 @@ def main(argv) -> None:
     torch.cuda.empty_cache()
     launches.update(niceslam_runs(office, bounds))
     launches.update(voxfusion_runs(office))
+    dpvo_records, dpvo_launches = dpvo_runs(office)
+    records += dpvo_records
+    launches.update(dpvo_launches)
     for r in records:
         counter = r.pop("counter")
         r["launches"] = 0 if counter is None else launches[counter]

@@ -293,6 +293,31 @@ def test_synthetic_frames_and_upload_match_jax(scene):
                                   np.asarray(f_j.rgb_jax()))
 
 
+@pytest.mark.parametrize("scene", ["simple", "office"])
+def test_kept_renders_equal_fresh_traces(scene):
+    """With ``keep_renders`` on, a longer sequence takes a shorter one's
+    frames (copies) and traces only the rest, in other batches; every frame
+    equals a fresh dataset's, bit for bit."""
+    from xrdslam_tpu_torch.common import synthetic
+
+    kw = dict(height=12, width=16, scene=scene)
+    synthetic.keep_renders()
+    try:
+        short = SyntheticDataset(n_frames=3, **kw)
+        short.prerender(batch=2)
+        longer = SyntheticDataset(n_frames=5, **kw)
+        longer.prerender(batch=8)
+        assert (short.n_shared, longer.n_shared) == (0, 3)
+        assert longer[1][1] is not short[1][1]
+    finally:
+        synthetic.keep_renders(False)
+    fresh = SyntheticDataset(n_frames=5, **kw)
+    assert fresh.n_shared == 0
+    for i in range(5):
+        for a, b in zip(longer[i][1:], fresh[i][1:]):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_tiny_run_through_the_cli(tmp_path):
     from xrdslam_tpu_torch.scripts.run import main
 

@@ -155,11 +155,31 @@ def orbit_poses(n_frames: int, radius: float = 0.6, height_amp: float = 0.2, deg
     return poses
 
 
+# Frames traced in this process, by (scene, height, width, fov_deg, device
+# type, index),
+# for the datasets made while ``keep_renders`` is on. Frame i of a scene at
+# a size depends on neither the sequence's length (``tour_poses`` and
+# ``orbit_poses`` give pose i from i alone) nor the frames traced beside it
+# (the trace is per ray), so a later sequence takes an earlier one's frames.
+_RENDERS: dict = {}
+_KEEP_RENDERS = False
+
+
+def keep_renders(on: bool = True) -> None:
+    """Share traced frames between the datasets this process makes from now
+    on (each takes copies); ``False`` stops sharing and drops the frames."""
+    global _KEEP_RENDERS
+    _KEEP_RENDERS = on
+    if not on:
+        _RENDERS.clear()
+
+
 class SyntheticDataset:
     """In-memory synthetic RGB-D dataset with exact poses.
 
     Items are numpy tuples (idx, color [H,W,3] f32, depth [H,W] f32, c2w
-    [4,4]); depth is traced on ``device``.
+    [4,4]); depth is traced on ``device``. ``n_shared`` counts the frames
+    taken from another dataset's traces (``keep_renders``).
     """
 
     data_format = "RGBD"
@@ -191,6 +211,9 @@ class SyntheticDataset:
         self.camera = Camera(fx=f, fy=f, cx=width / 2 - 0.5, cy=height / 2 - 0.5, height=height, width=width)
         self.poses = orbit_poses(n_frames) if scene == "simple" else tour_poses(n_frames)
         self._cache = {}
+        self._shared = _RENDERS if _KEEP_RENDERS else None
+        self._key = (scene, height, width, fov_deg, self.device.type)
+        self.n_shared = 0
 
     def __len__(self) -> int:
         return self.n_img
@@ -201,7 +224,16 @@ class SyntheticDataset:
         return np.stack([(i - cam.cx) / cam.fx, -(j - cam.cy) / cam.fy, -np.ones_like(i, np.float64)], -1)
 
     def _render(self, idxs) -> None:
-        """Trace the frames ``idxs`` in one batch and cache them."""
+        """Trace the frames ``idxs`` in one batch and cache them; those that
+        another dataset traced are copied from it instead."""
+        if self._shared is not None:
+            for i in idxs:
+                if self._key + (i,) in self._shared:
+                    self._cache[i] = tuple(a.copy() for a in self._shared[self._key + (i,)])
+                    self.n_shared += 1
+            idxs = [i for i in idxs if i not in self._cache]
+            if not idxs:
+                return
         poses = self.poses[idxs].astype(np.float64)  # [B, 4, 4]
         dirs_w = np.einsum("hwj,bij->bhwi", self._dirs(), poses[:, :3, :3])
         origins = np.broadcast_to(poses[:, None, None, :3, 3], dirs_w.shape)
@@ -216,6 +248,8 @@ class SyntheticDataset:
         color = np.where(depth[..., None] > 0, color_fn(p_hit), 0.0).astype(np.float32)
         for j, i in enumerate(idxs):
             self._cache[i] = (color[j], depth[j])
+            if self._shared is not None:
+                self._shared[self._key + (i,)] = (color[j].copy(), depth[j].copy())
 
     def prerender(self, batch: int = 8) -> None:
         """Fill the frame cache, ``batch`` frames per trace."""

@@ -7,8 +7,11 @@ office0, CLI-overridable; the ``embed_fn_color`` optimizer group is left
 out while ``oneGrid=False`` is not ported), NICE-SLAM, SplaTAM,
 Point-SLAM (its decoders train from scratch: the pretrained
 ``middle_fine.pt`` that the reference entry names is not in the
-repository) and Vox-Fusion (its random window is the only keyframe
-selection it has). Knobs that nothing in the
+repository), Vox-Fusion (its random window is the only keyframe
+selection it has) and DPVO (its ``pretrained/dpvo/dpvo.pth`` is not in the
+repository either: the network starts random, with a warning, unless
+``model.pretrained_path`` names a ``.npz`` checkpoint such as
+``pretrained/dpvo_synth.npz``). Knobs that nothing in the
 port reads yet are left out of each entry.
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ from pathlib import Path
 from typing import Dict
 
 from ..algorithms.coslam import CoSLAMConfig
+from ..algorithms.dpvo import DPVOConfig
 from ..algorithms.nice_slam import NiceSLAMConfig
 from ..algorithms.point_slam import PointSLAMConfig
 from ..algorithms.splatam import SplaTAMConfig
@@ -29,6 +33,7 @@ from ..models.conv_onet import ConvOnetConfig
 from ..models.conv_onet_pointslam import ConvOnet2Config
 from ..models.gaussian_splatting import GaussianSplattingConfig
 from ..models.joint_encoding import JointEncodingConfig
+from ..models.vonet import VONetConfig
 from ..models.sparse_voxel import SparseVoxelConfig
 from ..pipeline.slam import MapperConfig, SLAMPipelineConfig, TrackerConfig
 
@@ -40,6 +45,7 @@ descriptions = {
     "splaTAM": "Implementation of splaTAM (tile rasterizer, CUDA kernels).",
     "point-slam": "Implementation of point-slam (spatial-hash kNN with a CUDA row gather).",
     "vox-fusion": "Implementation of vox-fusion (device voxel hash; K4 as its embeddings' gradient).",
+    "dpvo": "Implementation of dpvo (patch-graph visual odometry; K4 under its segment and block sums).",
 }
 
 algorithm_configs["co-slam"] = RunnerConfig(
@@ -202,6 +208,23 @@ algorithm_configs["vox-fusion"] = RunnerConfig(
                 "tracking_pose": {"optimizer": AdamOptimizerConfig(lr=1e-2), "scheduler": None},
                 "mapping_pose": {"optimizer": AdamOptimizerConfig(lr=1e-3), "scheduler": None},
             },
+        ),
+    ),
+)
+
+algorithm_configs["dpvo"] = RunnerConfig(
+    algorithm_name="dpvo",
+    xrdslam=SLAMPipelineConfig(
+        tracker=TrackerConfig(map_every=-1),
+        algorithm=DPVOConfig(
+            mapping_window_size=32,
+            patch_lifetime=13,
+            patch_per_frame=96,
+            init_frame_num=8,
+            optimization_window=10,
+            buffer_size=2048,
+            mem=32,
+            model=VONetConfig(pretrained_path="pretrained/dpvo/dpvo.pth"),
         ),
     ),
 )

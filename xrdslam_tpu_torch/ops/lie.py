@@ -2,8 +2,10 @@
 
 Counterpart of the parts of ``xrdslam_tpu/ops/lie.py`` that the ported
 algorithms use: axis-angle and quaternion rotations, pose vectors to 4x4
-matrices and rigid inverses, and the device constant-velocity prediction
-of Co-SLAM's and Vox-Fusion's fused steps.
+matrices and rigid inverses, the device constant-velocity prediction
+of Co-SLAM's and Vox-Fusion's fused steps, and the quaternion product,
+rotation and SE(3) exponential of DPVO's projective ops and bundle
+adjuster.
 Small-angle neighbourhoods use Taylor expansions selected with
 ``torch.where``; the unselected branch is evaluated too, so every branch
 keeps its argument away from 0 (``maximum(theta2, _EPS)``) and no NaN
@@ -119,6 +121,42 @@ def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
         torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
         torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
     ], -2)
+
+
+def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w,x,y,z) quaternions."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], -1)
+
+
+def quaternion_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate points v [..., 3] by quaternion q [..., 4]."""
+    xyz = q[..., 1:]
+    t = 2.0 * torch.linalg.cross(xyz, v, dim=-1)
+    return v + q[..., :1] * t + torch.linalg.cross(xyz, t, dim=-1)
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) tangent [..., 6] (v, w) -> [..., 4, 4]."""
+    v, w = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(w * w, -1)
+    K = skew(w)
+    KK = _skew_squared(w)
+    a = _sinc(theta2)[..., None, None]
+    b = _cosc(theta2)[..., None, None]
+    # c = (1 - sinc(t)) / t^2, Taylor: 1/6 - t^2/120
+    c = torch.where(theta2 < 1e-8, 1.0 / 6.0 - theta2 / 120.0,
+                    (1.0 - _sinc(theta2)) / torch.clamp(theta2, min=_EPS))[..., None, None]
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(K.shape)
+    R = eye + a * K + b * KK
+    t = (eye + b * K + c * KK) @ v[..., :, None]
+    return torch.cat([torch.cat([R, t], -1), _bottom_row(R)], -2)
 
 
 def predict_constant_velocity(t1: torch.Tensor, r1: torch.Tensor, t2: torch.Tensor, r2: torch.Tensor

@@ -30,7 +30,13 @@ copies it into a ``SparseVoxel``; ``voxfusion_state_from_jax`` copies the
 reference's device voxel maps (the dict of ``empty_device_maps`` /
 ``insert_marked``, or of ``VoxelHashMap.device_state``, whose vertex hash
 is left as it is) into a port ``VoxFusion``'s ``maps`` in place (the
-same keys, shapes and dtypes).
+same keys, shapes and dtypes). ``dpvo_params_from_jax`` copies the
+reference DPVO's ``params`` tree (``fnet``, ``inet``, ``update``; the layout
+of ``dpvo_train.save_params``) into a ``VONet``; ``dpvo_state_from_jax``
+copies a DPVO's whole state (the host graph, poses, patches, counters, the
+patch generator's state, the feature rings and each edge's hidden state)
+from a reference ``DPVO``, or from another port ``DPVO``, into a port
+``DPVO``, so that both run their next update from one state.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ from ..models.joint_encoding import JointEncoding
 from ..models.sparse_voxel import SparseVoxel
 
 if TYPE_CHECKING:
+    from ..algorithms.dpvo import DPVO
+    from ..models.vonet import VONet
     from ..algorithms.splatam import SplaTAM
     from ..algorithms.voxfusion import VoxFusion
 
@@ -177,4 +185,43 @@ def voxfusion_state_from_jax(algo: "VoxFusion", np_maps: Dict[str, Any]) -> "Vox
         if src.shape != dst.shape or src.dtype != dst.dtype:
             raise ValueError(f"maps.{k}: {src.dtype} {tuple(src.shape)} does not fit {dst.dtype} {tuple(dst.shape)}")
         dst.copy_(src)
+    return algo
+
+
+@torch.no_grad()
+def dpvo_params_from_jax(np_tree: Dict[str, Any], model: "VONet") -> "VONet":
+    model.load_tree(np_tree)
+    return model
+
+
+# a DPVO's host state, copied as arrays, and its scalars
+DPVO_HOST_ARRAYS = ("tstamps", "poses_t", "poses_q", "patches", "colors", "points", "ii", "jj", "kk")
+DPVO_SCALARS = ("n", "m", "counter")
+DPVO_RINGS = ("imap_ring", "gmap_ring", "fmap1_ring", "fmap2_ring")
+
+
+def _host(x: Any) -> np.ndarray:
+    """An array of either package (numpy, jax, or a tensor on any device) as numpy."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.array(x)
+
+
+@torch.no_grad()
+def dpvo_state_from_jax(algo: "DPVO", src: Any) -> "DPVO":
+    for k in DPVO_HOST_ARRAYS:
+        dst, val = getattr(algo, k), _host(getattr(src, k))
+        if val.shape[1:] != dst.shape[1:] or (k not in ("ii", "jj", "kk") and val.shape != dst.shape):
+            raise ValueError(f"{k}: shape {val.shape} does not fit {dst.shape}")
+        setattr(algo, k, val.astype(dst.dtype))
+    for k in DPVO_SCALARS:
+        setattr(algo, k, int(getattr(src, k)))
+    for k in DPVO_RINGS:
+        _copy(getattr(algo, k), _host(getattr(src, k)), k)
+    net = torch.as_tensor(_host(src.net).astype(np.float32))
+    if tuple(net.shape) != (len(algo.ii), algo.DIM):
+        raise ValueError(f"net: shape {tuple(net.shape)} does not fit {len(algo.ii)} edges")
+    algo.net = net.to(algo.device)
+    algo.tlist = list(src.tlist)
+    algo.delta = {int(t): (int(t0), np.array(dP)) for t, (t0, dP) in src.delta.items()}
+    algo._rng.bit_generator.state = src._rng.bit_generator.state
+    algo.initialized = bool(src.is_initialized())
     return algo
