@@ -127,8 +127,19 @@
    launches equal to ``dpvo_schedule`` (12 an update, 4 a motion probe),
    K4 held to its twin and timed at the registry run's SoftAgg and
    bundle-adjuster shapes (the largest DPVO gives it) on one update at its
-   last state, and that run's update profiled by stage. A
-   gated run's ATE must be at most
+   last state, and that run's update profiled by stage. NeuralRecon
+   (cuDNN's convolutions in full float32; K4 as the back-projection's
+   gradient, so only its training launches a hand kernel): its in-env
+   training at ``tests/test_neucon_sequence.py``'s configuration, gated at
+   that test's gates (``neuralrecon@test``); the registry's entry at full
+   width through the runner on the office's 200 frames, gated on its
+   fragment count against the host gating's and finite volumes, with a
+   profile of one fragment by stage and of one training step
+   (``neuralrecon@registry``); and a training run at full width on those
+   frames (``neuralrecon@train96``, gated on a falling loss, its
+   reconstruction reported beside random weights'), each training run's
+   K4 launches held to one a view and level a step, and K4 checked and
+   timed at the 96^3 level's shape. A gated run's ATE must be at most
    10 cm and at most half that of a camera frozen at frame 0
    (``FROZEN_ATE_SHARE``). Every pose must be finite and every kernel of
    each main path launched (the launch counts are zeroed just before each
@@ -160,6 +171,12 @@ reported, not gated (only finiteness fails it); no result line.
 builds the kernels and runs DPVO's part of the default run alone (its two
 runs, K4 at its shapes, the profile), then prints the kernels line of its
 K4 records; no result line.
+
+    python3 chip_smoke.py --neuralrecon
+
+builds the kernels and runs NeuralRecon's part of the default run alone
+(its three runs, the profile, K4 at its shape), then prints the kernels
+line of its K4 record; no result line.
 
     python3 chip_smoke.py --slots-probe
 
@@ -317,6 +334,28 @@ DPVO_TRAINED = {"algorithm.patch_per_frame": 48, "algorithm.patch_lifetime": 13,
 DPVO_REGISTRY = {"algorithm.model.pretrained_path": DPVO_WEIGHTS, "algorithm.motion_init_thresh": 0.0,
                  "algorithm.keyframe_thresh": DPVO_TRAINED["algorithm.keyframe_thresh"]}
 DPVO_ATE_LIMIT_CM = 2.0
+# NeuralRecon. neuralrecon@test: tests/test_neucon_sequence.py's sequence
+# (12 frames of the simple scene at 48x64, n_vox 32 at 0.15 m, fragments
+# of 3 + 1 views, no gating; 2 epochs x 25 steps a fragment) and its gates:
+# the loss ends below NEURALRECON_LOSS_DROP of its first value, and the
+# fused mesh of the trained weights (F-score at the voxel size, 0.15 m)
+# beats NEURALRECON_TEST_GATES and random weights
+NEURALRECON_TEST_DATA = "n_frames=12,height=48,width=64"
+NEURALRECON_TEST = dict(mapping_window_size=3, min_angle=0.0, min_distance=0.0, max_depth=3.0, img_size_w=64,
+                        img_size_h=48)
+NEURALRECON_TEST_MODEL = dict(n_vox=32, voxel_size=0.15)
+NEURALRECON_TEST_STEPS = 25
+NEURALRECON_LOSS_DROP = 0.25
+NEURALRECON_TEST_GATES = {"accuracy_cm": 15.0, "completion_cm": 30.0, "f1_pct": 50.0}
+# neuralrecon@registry: the registry's entry (n_vox 96 at 0.05 m, 10 views
+# of 640x480 a fragment, gating at 15 degrees and 0.1 m) on the office's
+# 200 frames at 600x340, random weights. neuralrecon@train96: the same with
+# a keyframe every 2 cm, so that the tour gives several fragments, trained
+# for NEURALRECON_TRAIN96_STEPS steps a fragment (one epoch) and fused
+# again; its reconstruction at 5 cm against random weights', reported
+NEURALRECON_FRAMES = 200
+NEURALRECON_TRAIN96 = {"algorithm.min_distance": 0.02}
+NEURALRECON_TRAIN96_STEPS = 4
 ATE_LIMIT_CM = 10.0
 # A gated run must also score at most this share of the ATE of a camera
 # that never moves (every pose frame 0's): the office tour moves 0.6 cm a
@@ -2205,6 +2244,21 @@ def reference_row(algorithm: str = "co-slam"):
     return row, gates[algorithm]
 
 
+_CULLED_GT = {}
+
+
+def culled_gt_mesh(ds):
+    """The scene's exact mesh (0.02 m) culled to the frames' frustums, once
+    a process for a scene, size and frame count (the trajectory depends on
+    nothing else)."""
+    from xrdslam_tpu_torch.utils.mesh_ops import cull_mesh
+
+    key = (ds.scene, ds.camera.height, ds.camera.width, len(ds))
+    if key not in _CULLED_GT:
+        _CULLED_GT[key] = cull_mesh(ds, ds.gt_mesh(voxel=0.02))
+    return _CULLED_GT[key]
+
+
 def protocol_row(pipeline, ate_cm: float, algorithm: str = "co-slam") -> dict:
     """``bench_accuracy.run_algo``'s row of a finished run of ``algorithm``: PSNR,
     SSIM and depth-L1 of ``render_img`` at the estimated pose every
@@ -2236,7 +2290,7 @@ def protocol_row(pipeline, ate_cm: float, algorithm: str = "co-slam") -> dict:
     t_mesh = time.perf_counter() - t0
     t0 = time.perf_counter()
     rec = cull_mesh(ds, mesh, estimate_c2w_list=est, eval_rec=True)
-    gt = cull_mesh(ds, ds.gt_mesh(voxel=0.02))
+    gt = culled_gt_mesh(ds)
     m3 = calc_3d_metric(rec, gt)
     t_metric = time.perf_counter() - t0
     print(f"[protocol] render sweep ({len(frames)} frames) {t_render:.3f} s; get_mesh {t_mesh:.3f} s "
@@ -2278,6 +2332,50 @@ def profile(name: str, phases) -> None:
         top = sorted(rows.items(), key=lambda kv: -kv[1][1])
         # the 12 largest rows, and every copy between host and device
         for key, (n, ns) in top[:12] + [kv for kv in top[12:] if kv[0].startswith("Memcpy HtoD")]:
+            print(f"[profile]   {ns / 1e6:9.3f} ms  x{n:<5d} {key[:90]}")
+
+
+def profile_phases(name: str, phases) -> None:
+    """``profile``'s lines for many short phases from one torch.profiler
+    session (a session costs the host ~1–2 s to start and read): one warm
+    pass over the phases, then each phase in turn inside a
+    ``record_function`` range, ended by a synchronize; a device event is
+    the phase's whose launching op started inside that range."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, record_function
+
+    for fn in phases.values():
+        fn()
+    torch.cuda.synchronize()
+    walls = {}
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for phase, fn in phases.items():
+            with record_function(f"phase:{phase}"):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[phase] = (time.perf_counter() - t0) * 1e3
+    events = list(prof.profiler.kineto_results.events())
+    windows = [(e.start_ns(), e.end_ns(), e.name()[len("phase:"):]) for e in events
+               if e.device_type() == DeviceType.CPU and e.name().startswith("phase:")]
+    launched = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0}
+    rows = {phase: {} for phase in phases}
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        t = launched.get(e.linked_correlation_id(), e.start_ns())
+        phase = next((n for a, b, n in windows if a <= t <= b), None)
+        if phase is not None:
+            r = rows[phase].setdefault(e.name(), [0, 0])
+            r[0] += 1
+            r[1] += e.duration_ns()
+    for phase in phases:
+        dev_ms = sum(ns for _, ns in rows[phase].values()) / 1e6
+        print(f"[profile] {name} {phase}: wall {walls[phase]:.3f} ms, device busy {dev_ms:.3f} ms "
+              f"({100 * dev_ms / max(walls[phase], 1e-9):.1f}%), kernels {sum(n for n, _ in rows[phase].values())}")
+        for key, (n, ns) in sorted(rows[phase].items(), key=lambda kv: -kv[1][1])[:6]:
             print(f"[profile]   {ns / 1e6:9.3f} ms  x{n:<5d} {key[:90]}")
 
 
@@ -2768,6 +2866,318 @@ def dpvo_runs(office: str) -> tuple:
     return records, {r["counter"]: r.pop("run_launches") for r in records}
 
 
+class Clock:
+    """Host seconds between calls, by name (``laps``)."""
+
+    def __init__(self):
+        self.laps, self.t = {}, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name], self.t = now - self.t, now
+
+
+def neuralrecon_frames(ds):
+    """The dataset's frames as NeuralRecon's tracking poses them (the OpenGL
+    c2w with y and z flipped, no offset), ground truth attached."""
+    from xrdslam_tpu_torch.common.frame import Frame
+
+    frames = []
+    for i in range(len(ds)):
+        _, rgb, depth, c2w = ds[i]
+        cv = np.asarray(c2w, np.float32).copy()
+        cv[:3, 1] *= -1
+        cv[:3, 2] *= -1
+        frames.append(Frame(fid=i, rgb=rgb, depth=depth, init_pose=cv, gt_pose=c2w, rot_rep="quat"))
+    return frames
+
+
+def neuralrecon_fused(cfg, ds, frames, device, params=None):
+    """A fresh NeuralRecon over ``frames`` (``do_mapping`` each) on
+    ``device``, on ``params`` or its random weights; returns the algorithm."""
+    algo = cfg.setup(camera=ds.get_camera(), device=device)
+    if params is not None:
+        algo.params = params
+    for f in frames:
+        algo.do_mapping(f)
+    return algo
+
+
+def recon_metrics(ds, mesh, gt_culled, thresh: float):
+    """3D metrics of ``mesh`` culled to the frames' frustums against the
+    culled exact mesh (``tests/test_neucon_sequence.py``'s protocol), F-score
+    and completion ratio at ``thresh``; None without a surface."""
+    from xrdslam_tpu_torch.utils.eval_recon import calc_3d_metric
+    from xrdslam_tpu_torch.utils.mesh_ops import cull_mesh
+
+    if mesh is None:
+        return None
+    mesh = cull_mesh(ds, mesh)
+    if len(mesh.vertices) == 0:
+        return None
+    return calc_3d_metric(mesh, gt_culled, n_points=30000, comp_thresh=thresh, f1_thresh=thresh, align=False)
+
+
+def neuralrecon_test(device) -> dict:
+    """``neuralrecon@test``: ``tests/test_neucon_sequence.py`` on ``device``,
+    gated at its gates."""
+    from xrdslam_tpu_torch.algorithms.neural_recon import NeuralReconConfig
+    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
+    from xrdslam_tpu_torch.models.neucon import NeuConModelConfig
+    from xrdslam_tpu_torch.utils.mesh_ops import cull_mesh
+    from xrdslam_tpu_torch.utils.neucon_train import collect_fragments, scene_sdf_numpy, train_sequence
+
+    ds = SyntheticDataset(NEURALRECON_TEST_DATA, device=str(device))
+    cfg = NeuralReconConfig(**NEURALRECON_TEST, model=NeuConModelConfig(**NEURALRECON_TEST_MODEL))
+    frames = neuralrecon_frames(ds)
+    algo = cfg.setup(camera=ds.get_camera(), device=device)
+    clock = Clock()
+    frags = collect_fragments(algo, frames)
+    if len(frags) < 3:
+        raise RuntimeError(f"neuralrecon@test: {len(frags)} fragments, the test wants >= 3")
+    clock("fragments")
+    reset_all_launches()
+    params, losses = train_sequence(algo, frags, scene_sdf_numpy("simple"), epochs=2,
+                                    steps_per_fragment=NEURALRECON_TEST_STEPS)
+    clock("train")  # the losses' readback waits for the device
+    check_neuralrecon_launches("neuralrecon@test", algo, frags, len(losses))
+    gt_culled = cull_mesh(ds, ds.gt_mesh())
+    clock("gt_cull")
+    thresh = NEURALRECON_TEST_MODEL["voxel_size"]
+    trained = recon_metrics(ds, neuralrecon_fused(cfg, ds, frames, device, params).get_mesh(), gt_culled, thresh)
+    random = recon_metrics(ds, neuralrecon_fused(cfg, ds, frames, device).get_mesh(), gt_culled, thresh)
+    clock("fused_and_metrics")
+    rep = {"fragments": len(frags), "steps": len(losses), "seconds": clock.laps, "loss_first": losses[0],
+           "loss_last": losses[-1], "trained": trained, "random": random}
+    print(f"[neuralrecon] test: {json.dumps(rep)}")
+    fails = []
+    if not (np.isfinite(losses).all() and losses[-1] < NEURALRECON_LOSS_DROP * losses[0]):
+        fails.append(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, not below {NEURALRECON_LOSS_DROP} x")
+    if trained is None:
+        fails.append("the trained weights gave no surface")
+    else:
+        fails += [f"{k} {trained[k]:.3f}" for k, lim in NEURALRECON_TEST_GATES.items()
+                  if not (trained[k] > lim if k == "f1_pct" else trained[k] < lim)]
+        if random is not None and not (trained["f1_pct"] > 1.5 * random["f1_pct"]
+                                       or trained["accuracy_cm"] < 0.5 * random["accuracy_cm"]):
+            fails.append("no margin over random weights")
+    print(f"[gate] neuralrecon@test: loss {losses[0]:.4f} -> {losses[-1]:.4f} (< {NEURALRECON_LOSS_DROP} x); "
+          f"trained against {NEURALRECON_TEST_GATES} and 1.5 x random F1 or half its accuracy: "
+          f"{'pass' if not fails else fails}")
+    if fails:
+        raise RuntimeError(f"neuralrecon@test: {fails}")
+    return rep
+
+
+def check_neuralrecon_launches(name: str, algo, frags, steps: int) -> int:
+    """A training run's K4 launches (the back-projection's gradient: one a
+    view and level a step) against the schedule; returns them."""
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    views = {int(f["imgs"].shape[0]) for f in frags}
+    want = steps * views.pop() * algo.model.config.n_layer
+    got = sc.LAUNCHES["scatter_add"]
+    print(f"[launches] {name}: scatter_add {got}; schedule {want} ({steps} steps); by rows "
+          f"{json.dumps({str(k): v for k, v in sorted(sc.LAUNCHES_BY_ROWS.items())})}")
+    if got != want or views:
+        raise RuntimeError(f"{name}: scatter_add launches {got} != {want}")
+    return got
+
+
+def backproject_calls(model, params, dev, targets):
+    """The scatter_add calls of one training step on a fragment's device
+    inputs ``dev`` (the step is made): [(idx, g, rows)]."""
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    calls, shipped = [], sc.scatter_add
+
+    def keep(idx, g, rows):
+        calls.append((idx.detach().clone(), g.detach().clone(), rows))
+        return shipped(idx, g, rows)
+
+    sc.scatter_add = keep
+    try:
+        model.value_and_grad(params, *dev, None, *targets)
+    finally:
+        sc.scatter_add = shipped
+    return calls
+
+
+def neuralrecon_fragments(algo, frames) -> int:
+    """The fragments the host gating predicts over ``frames``: a fragment
+    each time ``mapping_window_size`` + 1 keyframes have gathered."""
+    from xrdslam_tpu_torch.algorithms.neural_recon import keyframe_passes
+
+    cfg, n, pending = algo.config, 0, []
+    for f in frames:
+        if not pending or keyframe_passes(pending[-1].get_pose(), f.get_pose(), cfg.min_angle, cfg.min_distance):
+            pending.append(f)
+        if len(pending) > cfg.mapping_window_size:
+            n, pending = n + 1, []
+    return n
+
+
+def profile_neuralrecon(algo, frames) -> None:
+    """One fragment of the run's first fragment's views, whole (the host
+    inputs, the uploads, the step, the readback and the host writes) and by
+    stage: the host inputs, the uploads, the backbone, then each level's
+    back-projection, U-Net and ConvGRU, and the readback and writes; each
+    stage on the inputs the step gave it. The writes repeat the fragment's
+    into the finished run's volumes."""
+    import torch
+
+    from xrdslam_tpu_torch.models import neucon as N
+    from xrdslam_tpu_torch.models.vonet import fp32_convolutions
+    from xrdslam_tpu_torch.utils.neucon_train import level_targets, scene_sdf_numpy
+
+    from xrdslam_tpu_torch.algorithms.neural_recon import keyframe_passes
+
+    model, params, cfg = algo.model, algo.params, algo.config
+    window = []
+    for f in frames:  # the first fragment's views, by the run's gating
+        if not window or keyframe_passes(window[-1].get_pose(), f.get_pose(), cfg.min_angle, cfg.min_distance):
+            window.append(f)
+        if len(window) > algo.config.mapping_window_size:
+            break
+    inputs = algo._fragment_inputs(window)
+    imgs, projs, origin, origin_vox, _ = inputs
+    dev = algo.upload_fragment(imgs, projs, origin, origin_vox)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = model.fragment_step(params, *dev)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    keep = []
+    with torch.no_grad(), fp32_convolutions():
+        model._levels(params, dev[0], dev[1], dev[2], dev[3], keep=keep)
+
+    def fragment():
+        algo.write_fragment(origin_vox, *model.fragment_step(params, *algo.upload_fragment(
+            *algo._fragment_inputs(window)[:4])))
+
+    def staged(fn):
+        def call():
+            with torch.no_grad(), fp32_convolutions():
+                return fn()
+        return call
+
+    phases = {"fragment": fragment, "inputs": lambda: algo._fragment_inputs(window),
+              "upload": lambda: algo.upload_fragment(imgs, projs, origin, origin_vox),
+              "step": lambda: model.fragment_step(params, *dev),
+              "backbone": staged(lambda: N.backbone2d_apply(params["backbone"], dev[0]))}
+    for i, k in enumerate(keep):
+        phases[f"back_project{i}"] = staged(lambda k=k: N.back_project(k["vox_w"], k["feats"], k["KRcam"]))
+        phases[f"unet{i}"] = staged(lambda k=k, i=i: N.unet3d_apply(params[f"unet{i}"], k["vol"]))
+        phases[f"gru{i}"] = staged(lambda k=k, i=i: N.convgru_apply(params[f"gru{i}"], k["hidden"], k["feat"]))
+    phases["write"] = lambda: algo.write_fragment(origin_vox, *out)
+    tsdf_t, occ_t = level_targets(model.config, origin, scene_sdf_numpy("office"), window, algo.camera,
+                                  algo.device)
+    phases["train_step"] = lambda: model.value_and_grad(params, *dev, None, tsdf_t, occ_t)
+    crop_mib = sum(h.numel() * 4 for h in dev[3]) / 2**20
+    print(f"[neuralrecon] fragment: {len(window)} views of {tuple(imgs.shape[1:3])}, volumes "
+          f"{[k['vol'].shape[2] for k in keep]}^3, hidden crops {crop_mib:.1f} MiB each way, step's peak "
+          f"{peak:.3f} GiB above its inputs")
+    profile_phases("neuralrecon@registry", phases)
+
+
+def neuralrecon_runs(office: str) -> tuple:
+    """NeuralRecon on the card: ``neuralrecon@test``, then the registry's
+    entry at full width through the runner (``neuralrecon@registry``:
+    fragments as the host gating predicts, finite volumes, the fragment
+    profile, the mesh), then ``neuralrecon@train96``; the training runs'
+    K4 launches held to their schedule, and K4 checked at the largest
+    shape they give it. Returns (the K4 record, its launches by name)."""
+    import torch
+
+    from xrdslam_tpu_torch.configs.registry import algorithm_configs
+    from xrdslam_tpu_torch.models.neucon import OUT_CHANNELS
+    from xrdslam_tpu_torch.ops import scatter as sc
+    from xrdslam_tpu_torch.utils.neucon_train import (collect_fragments, level_targets, scene_sdf_numpy,
+                                                      train_sequence)
+
+    device = torch.device("cuda")
+    neuralrecon_test(device)
+    stamp("neuralrecon@test")
+    torch.cuda.empty_cache()
+    pipeline, res = run_slam("neuralRecon", f"n_frames={NEURALRECON_FRAMES},{office}", tag="@registry")
+    algo, ds = pipeline.algorithm, pipeline.dataset
+    frames = neuralrecon_frames(ds)
+    want = neuralrecon_fragments(algo, frames)
+    vols = [algo.tsdf_vol, algo.occ_vol] + algo.hidden_vols
+    finite = all(v.data is not None and np.isfinite(v.data).all() for v in vols)
+    t0 = time.perf_counter()
+    mesh = algo.get_mesh()
+    rep = {"fragments": algo.fragment_id, "host_gating": want, "finite": finite,
+           "tsdf_shape": list(algo.tsdf_vol.data.shape) if algo.tsdf_vol.data is not None else None,
+           "occupied": int((algo.occ_vol.data > 0).sum()) if algo.occ_vol.data is not None else 0,
+           "mesh_vertices": 0 if mesh is None else len(mesh.vertices), "get_mesh_s": time.perf_counter() - t0,
+           "peak_mem_gib": res["peak_mem_gib"], "wall_s": res["wall_s"], "mapping": res["phases"].get("mapping")}
+    print(f"[neuralrecon] registry: {json.dumps(rep)}")
+    print(f"[gate] neuralrecon@registry: {algo.fragment_id} fragments against the host gating's {want}; finite "
+          f"volumes {finite}")
+    if algo.fragment_id != want or want < 1 or not finite:
+        raise RuntimeError(f"neuralrecon@registry: {rep}")
+    profile_neuralrecon(algo, frames)
+    stamp("neuralrecon@registry run and profile")
+    del pipeline, algo
+    torch.cuda.empty_cache()
+
+    cfg = copy.deepcopy(algorithm_configs["neuralRecon"].xrdslam.algorithm)
+    for path, value in NEURALRECON_TRAIN96.items():
+        setattr(cfg, path.split(".")[-1], value)
+    algo = cfg.setup(camera=ds.get_camera(), device=device)
+    clock = Clock()
+    frags = collect_fragments(algo, frames)
+    clock("fragments")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    params, losses = train_sequence(algo, frags, scene_sdf_numpy("office"), epochs=1,
+                                    steps_per_fragment=NEURALRECON_TRAIN96_STEPS)
+    clock("train")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_neuralrecon_launches("neuralrecon@train96", algo, frags, len(losses))
+    by_rows = dict(sc.LAUNCHES_BY_ROWS)
+    # K4 at the 96^3 level's shape: the first view's four corner gathers, on
+    # a real gradient of the first fragment at the trained weights
+    fr = frags[0]
+    hiddens = [torch.zeros(d, d, d, c, device=device) for (_, d), c in zip(algo.level_los(fr["origin_vox"]),
+                                                                        OUT_CHANNELS)]
+    targets = level_targets(algo.model.config, fr["vol_origin"].cpu().numpy(), scene_sdf_numpy("office"),
+                            fr["frames"], algo.camera, device)
+    calls = backproject_calls(algo.model, params, (fr["imgs"], fr["projs"], fr["vol_origin"], hiddens), targets)
+    idx, g, rows = max(calls, key=lambda c: (c[0].shape[0], c[2]))
+    name = "scatter_add[neuralrecon@train96 back-projection]"
+    per_row = np.bincount(idx.cpu().numpy(), minlength=rows)
+    print(f"[neuralrecon] {name}: {idx.shape[0]} ids x {g.shape[1]} into {rows} rows; {int((per_row > 0).sum())} "
+          f"rows hit, the longest {int(per_row.max())}; launches at these rows in the run: {by_rows.get(rows, 0)}")
+    record = {"name": name, "route": "cuda", "source": "xrdslam_tpu_torch/kernels/scatter.cu",
+              "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": name,
+              "shape": [int(idx.shape[0]), int(g.shape[1]), rows], **scatter_case(name, idx, g, rows, device)}
+    del calls, idx, g, targets, frags
+    clock("k4_check")
+    gt_culled = culled_gt_mesh(ds)
+    clock("gt_cull")
+    mesh = neuralrecon_fused(cfg, ds, frames, device, params).get_mesh()
+    clock("fused_trained")
+    trained = recon_metrics(ds, mesh, gt_culled, 0.05)
+    clock("metrics_trained")
+    random = recon_metrics(ds, neuralrecon_fused(cfg, ds, frames, device).get_mesh(), gt_culled, 0.05)
+    clock("fused_and_metrics_random")
+    rep = {"fragments": len(losses) // NEURALRECON_TRAIN96_STEPS, "steps": len(losses), "seconds": clock.laps,
+           "peak_mem_gib": peak, "losses": losses, "trained": trained, "random": random}
+    print(f"[neuralrecon] train96: {json.dumps(rep)}")
+    ok = np.isfinite(losses).all() and losses[-1] < losses[0]
+    print(f"[gate] neuralrecon@train96: loss {losses[0]:.4f} -> {losses[-1]:.4f}: {'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"neuralrecon@train96: the loss did not fall: {losses}")
+    stamp("neuralrecon@train96")
+    del algo, params
+    torch.cuda.empty_cache()
+    return [record], {record["counter"]: by_rows.get(record["shape"][2], 0)}
+
+
 T0 = time.perf_counter()
 
 
@@ -2813,6 +3223,12 @@ def main(argv) -> None:
         return
     if argv == ["--niceslam-protocol"]:
         niceslam_protocol()
+        return
+    if argv == ["--neuralrecon"]:
+        records, launches = neuralrecon_runs(f"height={HEIGHT},width={WIDTH},scene=office")
+        for r in records:
+            r["launches"] = launches[r.pop("counter")]
+        print(json.dumps({"kernels": records}))
         return
     if argv == ["--dpvo"]:
         records, launches = dpvo_runs(f"height={HEIGHT},width={WIDTH},scene=office")
@@ -3004,6 +3420,9 @@ def main(argv) -> None:
     dpvo_records, dpvo_launches = dpvo_runs(office)
     records += dpvo_records
     launches.update(dpvo_launches)
+    neuralrecon_records, neuralrecon_launches = neuralrecon_runs(office)
+    records += neuralrecon_records
+    launches.update(neuralrecon_launches)
     for r in records:
         counter = r.pop("counter")
         r["launches"] = 0 if counter is None else launches[counter]

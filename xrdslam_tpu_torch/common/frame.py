@@ -2,6 +2,8 @@
 
 Counterpart of ``xrdslam_tpu/common/frame.py``. The pose is a host (t, r)
 numpy pair; the trainable copy lives inside the tracking/mapping steps.
+``gt_pose`` is the frame's ground-truth c2w, where the pipeline knows it
+(NeuralRecon's tracking returns it).
 ``rgb_dev`` / ``depth_dev`` give the images as device tensors, cached; to
 a card they go up through pinned host memory without a wait
 (``non_blocking``), so that the pipeline can upload the next frames while
@@ -34,11 +36,13 @@ class Frame:
         rgb: Optional[np.ndarray],
         depth: Optional[np.ndarray],
         init_pose: Optional[np.ndarray] = None,
+        gt_pose: Optional[np.ndarray] = None,
         rot_rep: str = "axis_angle",
     ) -> None:
         self.fid = fid
         self.rgb = rgb
         self.depth = depth
+        self.gt_pose = gt_pose
         self.rot_rep = rot_rep
         self.is_final_frame = False
         self.t: Optional[np.ndarray] = None

@@ -11,8 +11,10 @@ repository), Vox-Fusion (its random window is the only keyframe
 selection it has) and DPVO (its ``pretrained/dpvo/dpvo.pth`` is not in the
 repository either: the network starts random, with a warning, unless
 ``model.pretrained_path`` names a ``.npz`` checkpoint such as
-``pretrained/dpvo_synth.npz``). Knobs that nothing in the
-port reads yet are left out of each entry.
+``pretrained/dpvo_synth.npz``) and NeuralRecon (its
+``pretrained/neural_recon/model_000047.ckpt`` is absent too: the network
+keeps random weights, with the reference package's warning). Knobs that
+nothing in the port reads yet are left out of each entry.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Dict
 
 from ..algorithms.coslam import CoSLAMConfig
 from ..algorithms.dpvo import DPVOConfig
+from ..algorithms.neural_recon import NeuralReconConfig
 from ..algorithms.nice_slam import NiceSLAMConfig
 from ..algorithms.point_slam import PointSLAMConfig
 from ..algorithms.splatam import SplaTAMConfig
@@ -33,6 +36,7 @@ from ..models.conv_onet import ConvOnetConfig
 from ..models.conv_onet_pointslam import ConvOnet2Config
 from ..models.gaussian_splatting import GaussianSplattingConfig
 from ..models.joint_encoding import JointEncodingConfig
+from ..models.neucon import NeuConModelConfig
 from ..models.vonet import VONetConfig
 from ..models.sparse_voxel import SparseVoxelConfig
 from ..pipeline.slam import MapperConfig, SLAMPipelineConfig, TrackerConfig
@@ -46,6 +50,7 @@ descriptions = {
     "point-slam": "Implementation of point-slam (spatial-hash kNN with a CUDA row gather).",
     "vox-fusion": "Implementation of vox-fusion (device voxel hash; K4 as its embeddings' gradient).",
     "dpvo": "Implementation of dpvo (patch-graph visual odometry; K4 under its segment and block sums).",
+    "neuralRecon": "Implementation of neuralRecon (dense coarse-to-fine NeuCon fragments fused into global volumes).",
 }
 
 algorithm_configs["co-slam"] = RunnerConfig(
@@ -225,6 +230,25 @@ algorithm_configs["dpvo"] = RunnerConfig(
             buffer_size=2048,
             mem=32,
             model=VONetConfig(pretrained_path="pretrained/dpvo/dpvo.pth"),
+        ),
+    ),
+)
+
+algorithm_configs["neuralRecon"] = RunnerConfig(
+    algorithm_name="neuralRecon",
+    xrdslam=SLAMPipelineConfig(
+        tracker=TrackerConfig(map_every=1, use_relative_pose=False, save_debug_result=False),
+        algorithm=NeuralReconConfig(
+            mapping_window_size=9,
+            max_depth=3.5,
+            c2w_offset=(0.0, 0.0, 1.5),
+            mesh_use_double=False,
+            model=NeuConModelConfig(
+                n_vox=96,
+                voxel_size=0.05,
+                pos_weight=1.5,
+                pretrained_path="pretrained/neural_recon/model_000047.ckpt",
+            ),
         ),
     ),
 )

@@ -271,7 +271,7 @@ class SLAMPipeline:
 
         t0 = time.time()
         init_pose = self.predict_current_pose(i, gt_c2w)
-        frame = Frame(fid=i, rgb=rgb, depth=depth, init_pose=init_pose, rot_rep=algo.config.rot_rep)
+        frame = Frame(fid=i, rgb=rgb, depth=depth, init_pose=init_pose, gt_pose=gt_c2w, rot_rep=algo.config.rot_rep)
         frame.is_final_frame = i == n - 1
         if rgb_dev is not None:
             frame._rgb_dev, frame._depth_dev = rgb_dev, depth_dev

@@ -37,6 +37,11 @@ copies a DPVO's whole state (the host graph, poses, patches, counters, the
 patch generator's state, the feature rings and each edge's hidden state)
 from a reference ``DPVO``, or from another port ``DPVO``, into a port
 ``DPVO``, so that both run their next update from one state.
+``neucon_params_from_jax`` copies the reference NeuralRecon ``params`` tree
+(``backbone``, ``unet{i}``, ``gru{i}``, ``tsdf{i}``, ``occ{i}``; HWIO and
+DHWIO kernels) into a ``NeuCon``'s tree in place, each leaf in torch's
+layout (``models/neucon.to_torch_layout``: the transposed convolutions'
+kernels flipped).
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from ..models.joint_encoding import JointEncoding
 from ..models.sparse_voxel import SparseVoxel
 
 if TYPE_CHECKING:
+    from ..models.neucon import NeuCon
     from ..algorithms.dpvo import DPVO
     from ..models.vonet import VONet
     from ..algorithms.splatam import SplaTAM
@@ -225,3 +231,16 @@ def dpvo_state_from_jax(algo: "DPVO", src: Any) -> "DPVO":
     algo._rng.bit_generator.state = src._rng.bit_generator.state
     algo.initialized = bool(src.is_initialized())
     return algo
+
+
+@torch.no_grad()
+def neucon_params_from_jax(np_tree: Dict[str, Any], model: "NeuCon") -> "NeuCon":
+    from ..models.neucon import leaves, to_torch_layout
+
+    src = dict(leaves(np_tree))
+    dst = leaves(model.params)
+    if set(src) != {p for p, _ in dst}:
+        raise ValueError(f"the trees differ: {sorted(set(src) ^ {p for p, _ in dst})}")
+    for path, t in dst:
+        _copy(t, to_torch_layout(path, src[path]), "/".join(path))
+    return model
