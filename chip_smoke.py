@@ -127,7 +127,24 @@
    launches equal to ``dpvo_schedule`` (12 an update, 4 a motion probe),
    K4 held to its twin and timed at the registry run's SoftAgg and
    bundle-adjuster shapes (the largest DPVO gives it) on one update at its
-   last state, and that run's update profiled by stage. NeuralRecon
+   last state, and that run's update profiled by stage; ``dpvo@trained``
+   again on the committed weights written out as a reference-layout
+   ``dpvo.pth`` (``dpvo@trained-pth``: it must load and give the ``.npz``
+   run's poses). DPVO's training (``dpvo@train``, ``DPVO_TRAIN``): VONet
+   trained on the card from random weights at the first stage of
+   ``tools/dpvo_full_run.py``'s recipe, one step's gradients with K4 held
+   to the same step's with the twins, K4's launches to the counted schedule
+   (``engine/dpvo_train.train_step_scatters``, 22 a step; by rows, and by
+   role as the training run's calls give them), the learning gates of
+   ``tests/test_dpvo_train.py``, K4 checked and timed at each of a step's
+   six shapes, a step profiled at 160x120 and at 600x340
+   with 96 patches, and the trained tree run at ``dpvo@trained``'s
+   configuration (``dpvo@port-trained``; ATE reported). NICE-SLAM's
+   decoders at the end of its protocol run written as the reference's
+   ``middle_fine.pt`` / ``coarse.pt`` and loaded by a run of its first 8
+   frames, its first mapping 300 iterations (``nice-slam@pretrained``:
+   loaded, the frozen decoders the same bits after the run, K4's launches
+   the schedule's; ATE reported). NeuralRecon
    (cuDNN's convolutions in full float32; K4 as the back-projection's
    gradient, so only its training launches a hand kernel): its in-env
    training at ``tests/test_neucon_sequence.py``'s configuration, gated at
@@ -169,8 +186,23 @@ reported, not gated (only finiteness fails it); no result line.
     python3 chip_smoke.py --dpvo
 
 builds the kernels and runs DPVO's part of the default run alone (its two
-runs, K4 at its shapes, the profile), then prints the kernels line of its
-K4 records; no result line.
+runs and the ``.pth`` run, K4 at its shapes, the profile), then prints the
+kernels line of its K4 records; no result line.
+
+    python3 chip_smoke.py --dpvo-train
+
+builds the kernels and runs DPVO's training part of the default run alone
+(``dpvo@train`` and ``dpvo@port-trained``), then prints the kernels line of
+its K4 records; no result line. ``--dpvo-train-full`` trains at the whole
+committed recipe (400 iterations at 2e-4, then 1,600 at 1e-4, seed 1) and
+gates ``dpvo@port-trained`` at ``tests/test_dpvo_trained.py``'s 2.0 cm.
+
+    python3 chip_smoke.py --dpvo-train-seeds N
+
+trains the whole recipe from random weights at seeds 0 .. N - 1 and
+reports each trained tree's ``dpvo@trained`` ATE and their spread, then
+seed 0's first 20 steps on the card against the same steps in float64 on
+the CPU; no result line.
 
     python3 chip_smoke.py --neuralrecon
 
@@ -334,6 +366,51 @@ DPVO_TRAINED = {"algorithm.patch_per_frame": 48, "algorithm.patch_lifetime": 13,
 DPVO_REGISTRY = {"algorithm.model.pretrained_path": DPVO_WEIGHTS, "algorithm.motion_init_thresh": 0.0,
                  "algorithm.keyframe_thresh": DPVO_TRAINED["algorithm.keyframe_thresh"]}
 DPVO_ATE_LIMIT_CM = 2.0
+# dpvo@trained-pth: the committed weights through the reference-layout
+# .pth are the same float32 bits, so the run repeats the .npz run's; its
+# poses may differ from them by at most this (m or rotation entry), which
+# only a non-deterministic kernel in the run could take
+DPVO_PTH_POSE_TOL = 1e-5
+# dpvo@train: VONet trained on the card from random weights at the first
+# stage of tools/dpvo_full_run.py's recipe (16 office frames at 160x120,
+# 64 patches in one correlation chunk, 3 px of noise, lr 2e-4, seed 0, 400
+# iterations) and gated as tests/test_dpvo_train.py gates its training:
+# the mean of the last 10 losses below DPVO_TRAIN_LOSS_DROP of the first
+# 10; on a held-out batch (default_rng(123)), one update's error below
+# DPVO_TRAIN_NOISE_SHARE of the noise's and below DPVO_TRAIN_RANDOM_SHARE
+# of the random weights'; weights in (0, 1). The trained tree then runs
+# dpvo@trained's configuration (its ATE reported: 400 iterations are a
+# fifth of the committed weights' recipe). --dpvo-train-full adds the
+# recipe's second stage (1,600 iterations at 1e-4, seed 1) and gates that
+# run at DPVO_ATE_LIMIT_CM. A training step is profiled at 160x120 and at
+# 600x340 with the registry's 96 patches
+DPVO_TRAIN_DATA = "n_frames=16,height=120,width=160,scene=office"
+DPVO_TRAIN = dict(n_iters=400, lr=2e-4, m=64, chunk=64, noise_px=3.0, seed=0)
+DPVO_TRAIN_RESUME = dict(n_iters=1600, lr=1e-4, seed=1)
+DPVO_TRAIN_LOSS_DROP = 0.55
+DPVO_TRAIN_NOISE_SHARE = 0.6
+DPVO_TRAIN_RANDOM_SHARE = 0.8
+DPVO_TRAIN_REGISTRY_M = 96  # the registry's patch_per_frame
+# --dpvo-train-seeds: seed 0's first steps on the card against the CPU's float64
+DPVO_WITNESS_STEPS = 20
+# a training step's gradients with K4 against the same step with the twins:
+# within DPVO_TRAIN_GRAD_RTOL of the larger of a leaf's largest entry and
+# DPVO_TRAIN_GRAD_FLOOR of the largest entry of any leaf (sums in another
+# order). The floor is for the biases before the encoders' instance norms,
+# whose gradient is zero but for float32 rounding: ~1e-7 of the largest
+# entry in both runs, on an H100 and on the CPU
+DPVO_TRAIN_GRAD_RTOL = 1e-4
+DPVO_TRAIN_GRAD_FLOOR = 1e-2
+# NICE-SLAM with pretrained decoders: the middle, fine and coarse decoders
+# of the end of the smoke's nice-slam@protocol run written as the
+# reference's middle_fine.pt / coarse.pt and loaded by a run of the same
+# settings on its first 8 frames (frames 4-5 one group, captured), its
+# first mapping cut from the protocol's 1,500 iterations to
+# NICESLAM_PRETRAINED_FIRST_ITERS, which took 34 of the run's 62 s on an
+# H100 (gated: loaded, the frozen decoders the same bits after the run,
+# K4's launches the schedule's; ATE reported)
+NICESLAM_PRETRAINED_FRAMES = 8
+NICESLAM_PRETRAINED_FIRST_ITERS = 300
 # NeuralRecon. neuralrecon@test: tests/test_neucon_sequence.py's sequence
 # (12 frames of the simple scene at 48x64, n_vox 32 at 0.15 m, fragments
 # of 3 + 1 views, no gating; 2 epochs x 25 steps a fragment) and its gates:
@@ -453,6 +530,43 @@ def device_ms(fn, reps: int = 20) -> float:
     return cuda_ms(fn, reps)
 
 
+def device_ms_many(fns, reps: int = 20) -> dict:
+    """``device_ms`` of each of ``fns`` ({name: fn}) from one torch.profiler
+    session (late in a long process a session costs the host ~2 s to
+    start and read, more than the timing itself): each function's ``reps``
+    calls inside a ``record_function`` range ended by a synchronize, its
+    device events read as ``profile_phases`` reads them. A name whose range
+    recorded no device event is asked again, twice, and then timed by CUDA
+    events (a ``[time]`` line says so)."""
+    import torch
+    from torch.profiler import ProfilerActivity, record_function
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    out, todo = {}, dict(fns)
+    for _ in range(3):
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for name, fn in todo.items():
+                with record_function(f"phase:{name}"):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+        rows = phase_rows(prof, todo)
+        for name in list(todo):
+            ns = sum(ns for _, ns in rows[name].values())
+            if ns > 0:
+                out[name] = ns / 1e6 / reps
+                del todo[name]
+        if not todo:
+            return out
+    for name, fn in todo.items():
+        print(f"[time] torch.profiler recorded no device event for {name} in 3 tries: timed by CUDA events instead",
+              flush=True)
+        out[name] = cuda_ms(fn, reps)
+    return out
+
+
 def interleaved(kern, twin):
     """(kernel ms, twin ms): twin, kernel, kernel, twin, so both see the
     same card state; the better of each pair."""
@@ -538,8 +652,8 @@ def scatter_case(name: str, idx, g, rows: int, device, order=None):
           "sort": min(cuda_ms(sort), cuda_ms(sort)),
           "index_add_": min(cuda_ms(index_add), cuda_ms(index_add)),
           "index_put_": min(cuda_ms(index_put), cuda_ms(index_put))}
-    dev = {"kernel": device_ms(kern), "sums": device_ms(sums), "sort": device_ms(sort),
-           "index_add_": device_ms(index_add), "index_put_": device_ms(index_put)}
+    dev = device_ms_many({"kernel": kern, "sums": sums, "sort": sort, "index_add_": index_add,
+                          "index_put_": index_put})
     for vname, lib in SCATTER_VARIANTS.items():
         atomic_variant(vname, lib, idx, g, rows, device)
     b_ms, by = bound(nbytes(idx, g) + rows * g.shape[1] * 4, int((g_ok != 0).sum()))
@@ -2335,27 +2449,13 @@ def profile(name: str, phases) -> None:
             print(f"[profile]   {ns / 1e6:9.3f} ms  x{n:<5d} {key[:90]}")
 
 
-def profile_phases(name: str, phases) -> None:
-    """``profile``'s lines for many short phases from one torch.profiler
-    session (a session costs the host ~1–2 s to start and read): one warm
-    pass over the phases, then each phase in turn inside a
-    ``record_function`` range, ended by a synchronize; a device event is
-    the phase's whose launching op started inside that range."""
-    import torch
+def phase_rows(prof, phases) -> dict:
+    """{phase: {kernel name: [launches, device ns]}} of a finished
+    torch.profiler session (CPU and CUDA activities) in which each phase
+    ran inside a ``record_function("phase:<name>")`` range: a device event
+    is the phase's whose launching op started inside that range."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, record_function
 
-    for fn in phases.values():
-        fn()
-    torch.cuda.synchronize()
-    walls = {}
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for phase, fn in phases.items():
-            with record_function(f"phase:{phase}"):
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                walls[phase] = (time.perf_counter() - t0) * 1e3
     events = list(prof.profiler.kineto_results.events())
     windows = [(e.start_ns(), e.end_ns(), e.name()[len("phase:"):]) for e in events
                if e.device_type() == DeviceType.CPU and e.name().startswith("phase:")]
@@ -2371,6 +2471,30 @@ def profile_phases(name: str, phases) -> None:
             r = rows[phase].setdefault(e.name(), [0, 0])
             r[0] += 1
             r[1] += e.duration_ns()
+    return rows
+
+
+def profile_phases(name: str, phases) -> None:
+    """``profile``'s lines for many short phases from one torch.profiler
+    session (a session costs the host ~1–2 s to start and read): one warm
+    pass over the phases, then each phase in turn inside a
+    ``record_function`` range, ended by a synchronize; a device event is
+    the phase's whose launching op started inside that range."""
+    import torch
+    from torch.profiler import ProfilerActivity, record_function
+
+    for fn in phases.values():
+        fn()
+    torch.cuda.synchronize()
+    walls = {}
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for phase, fn in phases.items():
+            with record_function(f"phase:{phase}"):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[phase] = (time.perf_counter() - t0) * 1e3
+    rows = phase_rows(prof, phases)
     for phase in phases:
         dev_ms = sum(ns for _, ns in rows[phase].values()) / 1e6
         print(f"[profile] {name} {phase}: wall {walls[phase]:.3f} ms, device busy {dev_ms:.3f} ms "
@@ -2668,6 +2792,10 @@ def niceslam_runs(office: str, bounds) -> dict:
     launches = {f"scatter_add[nice-slam {grid} grid]": by_rows[str(int(np.prod(shapes[f"grid_{grid}"])))]
                 for grid in ("middle", "fine", "coarse")}
     steady = {"nice-slam@protocol": [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]}
+    from xrdslam_tpu_torch.utils.torch_convert import decoder_tree
+
+    # the run's decoders, before the checks below map further
+    trees = {name: decoder_tree(pipeline.algorithm.model.decoders[name]) for name in ("middle", "fine", "coarse")}
     check_group_replay(pipeline, "nice-slam@protocol", exact=False)
     check_outputs(pipeline, "nice-slam@protocol")
     profile_steps(pipeline, "nice-slam@protocol")
@@ -2687,7 +2815,50 @@ def niceslam_runs(office: str, bounds) -> dict:
     stamp("nice-slam@protocol-per-frame run")
     del pipeline
     torch.cuda.empty_cache()
+    niceslam_pretrained_run(office, config, trees)
     return launches
+
+
+def niceslam_pretrained_run(office: str, config, trees) -> None:
+    """NICE-SLAM at ``config``'s settings (the first mapping
+    ``NICESLAM_PRETRAINED_FIRST_ITERS`` iterations) on its first
+    ``NICESLAM_PRETRAINED_FRAMES`` frames with the decoders ``trees``
+    written as the reference's ``middle_fine.pt`` and ``coarse.pt`` and
+    named by the config: they must load (``pretrained_available``, only
+    the colour decoder trained, no geometric supervision), stay the same
+    bits through the run, and K4's launches be the schedule's; the ATE is
+    reported."""
+    import torch
+
+    from xrdslam_tpu_torch.utils.param_tree import flatten_tree
+    from xrdslam_tpu_torch.utils.torch_convert import decoder_tree, save_nice_decoders
+
+    d = os.path.join(ROOT, "build", "chip_smoke_pretrained")
+    os.makedirs(d, exist_ok=True)
+    mf, coarse = os.path.join(d, "middle_fine.pt"), os.path.join(d, "coarse.pt")
+    save_nice_decoders(mf, trees, coarse)
+    cfg = copy.deepcopy(config)
+    cfg.xrdslam.algorithm.model.pretrained_decoders_middle_fine = mf
+    cfg.xrdslam.algorithm.model.pretrained_decoders_coarse = coarse
+    cfg.xrdslam.algorithm.mapping_first_n_iters = NICESLAM_PRETRAINED_FIRST_ITERS
+    pipeline, res = run_slam("nice-slam", f"n_frames={NICESLAM_PRETRAINED_FRAMES},{office}", ("scatter_add",),
+                             tag="@pretrained", config=cfg)
+    model = pipeline.algorithm.model
+    want = niceslam_schedule(pipeline.config, res["frames"], model.grid_shapes)
+    got = {"scatter_add": res["launches"]["scatter_add"], "by_rows": res["scatter_add_by_rows"]}
+    after = {name: flatten_tree(decoder_tree(model.decoders[name])) for name in trees}
+    same = all(np.array_equal(a[k], flatten_tree(trees[name])[k]) for name, a in after.items() for k in a)
+    print(f"[nice-slam] nice-slam@pretrained: pretrained_available {model.pretrained_available}, trainable "
+          f"decoders {model.trainable_decoders}, geometric supervision {model.geo_supervision}; the frozen "
+          f"decoders the same bits after the run: {same}; ATE {res['ate_rmse_cm']:.4f} cm (reported); groups "
+          f"{res['groups']['groups']}; K4 {json.dumps(got)}, schedule {json.dumps(want)}")
+    if not (model.pretrained_available and model.trainable_decoders == ["color"] and not model.geo_supervision
+            and same and got == want):
+        raise RuntimeError("nice-slam@pretrained: the decoders did not load, changed, or K4's launches differ")
+    stamp("nice-slam@pretrained run")
+    del pipeline
+    torch.cuda.empty_cache()
+
 
 
 def niceslam_protocol() -> None:
@@ -2746,36 +2917,43 @@ def dpvo_schedule(algo) -> int:
     return UPDATE_SCATTERS * algo.n_updates + PROBE_SCATTERS * algo.n_probes
 
 
-def check_dpvo_run(pipeline, res: dict) -> None:
+def check_dpvo_run(pipeline, res: dict, weights: str = DPVO_WEIGHTS) -> None:
     """A DPVO run's K4 launches against ``dpvo_schedule``, and its weights:
-    the committed checkpoint must have loaded."""
+    the checkpoint ``weights`` must have loaded."""
     algo = pipeline.algorithm
     want = dpvo_schedule(algo)
     print(f"[launches] {res['run']}: {json.dumps(res['launches'])}; schedule scatter_add {want} "
           f"({algo.n_updates} updates, {algo.n_probes} probes)")
     if res["launches"]["scatter_add"] != want:
         raise RuntimeError(f"{res['run']}: scatter_add launches {res['launches']['scatter_add']} != {want}")
-    if algo.model.loaded_from != DPVO_WEIGHTS:
-        raise RuntimeError(f"{res['run']}: the weights {DPVO_WEIGHTS} did not load ({algo.model.loaded_from!r})")
+    if algo.model.loaded_from != weights:
+        raise RuntimeError(f"{res['run']}: the weights {weights} did not load ({algo.model.loaded_from!r})")
+
+
+def scatter_calls(fn):
+    """The K4 calls that ``fn()`` makes (each ``scatter_add_ordered``: the
+    ordered sums of ``scatter_add``, ``segment_sum`` and the table
+    gradients), as [(ordering, g)]; ``fn`` runs."""
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    calls, shipped = [], sc.scatter_add_ordered
+
+    def keep(order, g):
+        calls.append((order, g.detach().clone()))
+        return shipped(order, g)
+
+    sc.scatter_add_ordered = keep
+    try:
+        fn()
+    finally:
+        sc.scatter_add_ordered = shipped
+    return calls
 
 
 def dpvo_update_calls(algo):
-    """The scatter_add calls of one update at ``algo``'s state (the update
-    is made): [(idx, g, rows)]."""
-    from xrdslam_tpu_torch.ops import scatter as sc
-
-    calls, shipped = [], sc.scatter_add
-
-    def keep(idx, g, rows):
-        calls.append((idx.detach().clone(), g.detach().clone(), rows))
-        return shipped(idx, g, rows)
-
-    sc.scatter_add = keep
-    try:
-        algo.update()
-    finally:
-        sc.scatter_add = shipped
-    return calls
+    """The K4 calls of one update at ``algo``'s state (the update is made):
+    [(idx, g, rows)]."""
+    return [(order.idx.detach().clone(), g, order.num_rows) for order, g in scatter_calls(algo.update)]
 
 
 def check_scatter_dpvo(pipeline, res: dict) -> list:
@@ -2846,9 +3024,11 @@ def dpvo_runs(office: str) -> tuple:
                              correct_scale=True)
     check_dpvo_run(pipeline, res)
     steady = {"dpvo@trained": res.get("steady_s_per_frame")}
+    poses = np.stack(pipeline.algorithm.estimate_c2w_list)
     stamp("dpvo@trained run")
     del pipeline
     torch.cuda.empty_cache()
+    dpvo_pth_run(poses)
     pipeline, res = run_slam("dpvo", f"n_frames={DPVO_FRAMES},{office}", ("scatter_add",),
                              overrides=DPVO_REGISTRY, tag="@registry", correct_scale=True)
     check_dpvo_run(pipeline, res)
@@ -2864,6 +3044,351 @@ def dpvo_runs(office: str) -> tuple:
     del pipeline
     torch.cuda.empty_cache()
     return records, {r["counter"]: r.pop("run_launches") for r in records}
+
+
+def dpvo_pth_run(npz_poses) -> None:
+    """``dpvo@trained`` again on the committed weights written out as a
+    ``dpvo.pth`` in the reference's layout (``utils/torch_convert``): the
+    converted checkpoint must load and give the ``.npz`` run's poses
+    (``npz_poses``; the same bits, or within ``DPVO_PTH_POSE_TOL``)."""
+    import torch
+
+    from xrdslam_tpu_torch.utils.param_tree import load_params
+    from xrdslam_tpu_torch.utils.torch_convert import save_dpvo_weights
+
+    pth = os.path.join(ROOT, "build", "chip_smoke_pretrained", "dpvo.pth")
+    os.makedirs(os.path.dirname(pth), exist_ok=True)
+    save_dpvo_weights(pth, load_params(DPVO_WEIGHTS))
+    pipeline, res = run_slam("dpvo", DPVO_TRAINED_DATA, ("scatter_add",),
+                             overrides={**DPVO_TRAINED, "algorithm.model.pretrained_path": pth}, tag="@trained-pth",
+                             correct_scale=True)
+    check_dpvo_run(pipeline, res, weights=pth)
+    poses = np.stack(pipeline.algorithm.estimate_c2w_list)
+    diff = float(np.abs(poses - npz_poses).max())
+    print(f"[dpvo] dpvo@trained-pth: {os.path.getsize(pth)} bytes of reference-layout checkpoint; poses against "
+          f"the .npz run's: identical bits {bool(np.array_equal(poses, npz_poses))}, max abs difference {diff:.3e} "
+          f"(limit {DPVO_PTH_POSE_TOL}); sim(3) ATE {res['ate_rmse_cm']:.4f} cm")
+    if not diff <= DPVO_PTH_POSE_TOL:
+        raise RuntimeError(f"dpvo@trained-pth: poses differ from the .npz run's by {diff:.3e}")
+    stamp("dpvo@trained-pth run")
+    del pipeline
+    torch.cuda.empty_cache()
+
+
+def dpvo_correct(model, batch, n_rec: int = 1, chunk: int = 64):
+    """``tests/test_dpvo_train.py``'s held-out step: the estimate after
+    ``n_rec`` updates from ``cur0`` and the last weights, as numpy."""
+    import torch
+
+    from xrdslam_tpu_torch.engine import dpvo_train as T
+
+    with torch.no_grad():
+        for cur, delta, weight in T.recurrent_steps(model, batch["images"], batch["centers"], batch["cur0"], n_rec,
+                                                    chunk):
+            pass
+    return (cur + delta).cpu().numpy(), weight.cpu().numpy()
+
+
+def check_train_grads(net, batch, chunk: int) -> None:
+    """One training step's loss and gradients with K4 against the same
+    step's with every K4 call replaced by its plain twin, on the card
+    (``DPVO_TRAIN_GRAD_RTOL``); and the same bits in two steps."""
+    import torch
+
+    from xrdslam_tpu_torch.engine import dpvo_train as T
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    params = list(net.parameters())
+    runs = [T.value_and_grad(net, params, batch, chunk=chunk) for _ in range(2)]
+    shipped = sc.scatter_add, sc.scatter_add_ordered
+    sc.scatter_add, sc.scatter_add_ordered = sc.scatter_add_torch, sc.scatter_add_sorted_torch
+    try:
+        sc.reset_launches()
+        twin_loss, twin = T.value_and_grad(net, params, batch, chunk=chunk)
+        if sc.LAUNCHES["scatter_add"]:
+            raise RuntimeError("dpvo@train: the twins' step launched K4")
+    finally:
+        sc.scatter_add, sc.scatter_add_ordered = shipped
+    (loss, grads), (loss2, grads2) = runs
+    if not (torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))):
+        raise RuntimeError("dpvo@train: two steps on the same inputs gave different bits")
+    floor = DPVO_TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in twin)
+    worst, worst_name = 0.0, ""
+    for (name, _), g, w in zip(net.named_parameters(), grads, twin):
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), floor)
+        if not np.isfinite(err) or err > DPVO_TRAIN_GRAD_RTOL:
+            raise RuntimeError(f"dpvo@train: {name}'s gradient with K4 is {err:.3e} (relative) from the twins'")
+        worst, worst_name = max((worst, worst_name), (err, name))
+    agg = max(float(g.abs().max()) for (n, _), g in zip(net.named_parameters(), grads)
+              if n.startswith("update.agg_kk.f") or n.startswith("update.agg_ij.f"))
+    if not agg > 0:
+        raise RuntimeError("dpvo@train: no gradient reached the SoftAggs' f through their sums")
+    print(f"[check] dpvo@train step gradients, K4 against the twins on the card: loss {float(loss):.6f} vs "
+          f"{float(twin_loss):.6f}, the largest leaf error {worst:.3e} ({worst_name}; limit {DPVO_TRAIN_GRAD_RTOL} "
+          f"of the larger of the leaf's largest entry and {floor:.3e}); the same bits in two steps; "
+          f"SoftAgg f's largest gradient {agg:.3e}")
+
+
+def k4_roles(fn, m: int, keep: bool = False) -> tuple:
+    """Runs ``fn()`` (a training step, or a whole training run, at ``m``
+    patches) and returns (the K4 launches it made by role, counted at each
+    ``scatter_add_ordered`` call that launched the kernel in this run;
+    with ``keep``, the first (ordering, g) of each role). The roles:
+    SoftAgg's sums and gathers (m ids x 384 into m + 1 rows; each patch its
+    own group, ``softagg-kk``, or all in group 0, ``softagg-ij``: told
+    apart by the largest id, read after ``fn`` so that the run is not
+    synchronised), the context sample's table gradient (4 taps a patch x
+    384), the patch sampler's (9 pixels x 4 taps a patch x 128) and the
+    correlation's (x 128, into the 1/4-resolution rows, ``corr-level1``,
+    or the pooled ones, ``corr-level2``)."""
+    import torch
+
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    seen, largest, kept, shipped = [], [], [], sc.scatter_add_ordered
+
+    def count(order, g):
+        before = sc.LAUNCHES["scatter_add"]
+        out = shipped(order, g)
+        if sc.LAUNCHES["scatter_add"] == before + 1:
+            n, c, rows = order.idx.shape[0], g.shape[1], order.num_rows
+            if c == 384 and n == m and rows == m + 1:
+                key = len(largest)  # a SoftAgg call, resolved after the run
+                largest.append(order.keys[-1:])  # the sorted ids' last: a view, no copy
+            else:
+                key = "context" if c == 384 else "patches" if n == 36 * m else f"corr-rows{rows}"
+            seen.append(key)
+            if keep:
+                kept.append((key, order, g.detach().clone()))
+        return out
+
+    sc.scatter_add_ordered = count
+    try:
+        fn()
+    finally:
+        sc.scatter_add_ordered = shipped
+    top = torch.cat(largest).cpu().numpy() if largest else np.zeros(0)
+    corr = sorted({k for k in seen if isinstance(k, str) and k.startswith("corr-rows")},
+                  key=lambda k: -int(k[len("corr-rows"):]))
+    names = dict(zip(corr, ("corr-level1", "corr-level2")))
+
+    def role(key):
+        if isinstance(key, int):
+            return "softagg-ij" if int(top[key]) == 0 else "softagg-kk"
+        return names.get(key, key)
+
+    counts: dict = {}
+    for key in seen:
+        counts[role(key)] = counts.get(role(key), 0) + 1
+    firsts: dict = {}
+    for key, order, g in kept:
+        firsts.setdefault(role(key), (order, g))
+    return counts, firsts
+
+
+def train_recipe(net, ds, dev, stages) -> list:
+    """``net`` trained in place through ``stages`` (``DPVO_TRAIN`` and,
+    for the whole recipe, ``DPVO_TRAIN_RESUME`` over it); the losses."""
+    from xrdslam_tpu_torch.engine import dpvo_train as T
+
+    losses = []
+    for st in stages:
+        net, stage_losses = T.train(net, ds, dev, n_iters=st["n_iters"], lr=st["lr"], m=st["m"], seed=st["seed"],
+                                    noise_px=st["noise_px"], log_every=100, chunk=st["chunk"])
+        losses += stage_losses
+    return losses
+
+
+def port_trained_run(net, tag: str, gate):
+    """The tree of ``net`` saved and run at ``dpvo@trained``'s
+    configuration (``dpvo@port-trained``), its ATE gated at ``gate`` cm
+    (None: reported); returns the run's record."""
+    import torch
+
+    from xrdslam_tpu_torch.engine import dpvo_train as T
+
+    path = os.path.join(ROOT, "build", "chip_smoke_pretrained", f"dpvo_port_trained{tag}.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    T.save_params(path, net.tree())
+    pipeline, res = run_slam("dpvo", DPVO_TRAINED_DATA, ("scatter_add",),
+                             overrides={**DPVO_TRAINED, "algorithm.model.pretrained_path": path},
+                             ate_limit_cm=gate, tag=f"@port-trained{tag}", frozen_share=float("inf"),
+                             correct_scale=True)
+    check_dpvo_run(pipeline, res, weights=path)
+    del pipeline
+    torch.cuda.empty_cache()
+    return res
+
+
+def dpvo_train_runs(office: str, full: bool = False, device: str = "cuda") -> tuple:
+    """``dpvo@train``: VONet trained on the card (``DPVO_TRAIN``; with
+    ``full`` the recipe's second stage too), one step's gradients held to
+    the twins', K4's launches to the counted schedule, the learning gates,
+    K4 checked and timed at each of a step's shapes, a step profiled at
+    160x120 and at 600x340 with 96 patches, and the trained tree run at
+    ``dpvo@trained``'s configuration. Returns (the records, their launches
+    by name)."""
+    import torch
+
+    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
+    from xrdslam_tpu_torch.engine import dpvo_train as T
+    from xrdslam_tpu_torch.models.vonet import VONet, VONetConfig
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    dev = torch.device(device)
+    cfg = DPVO_TRAIN
+    ds = SyntheticDataset(DPVO_TRAIN_DATA, device=device)
+    ds.prerender()
+    net = VONet(VONetConfig()).to(dev)  # random weights, seed 0
+    random_net = copy.deepcopy(net)
+    losses: list = []
+    batch = T.upload_batch(T.make_batch(ds, np.random.default_rng(99), m=cfg["m"], noise_px=cfg["noise_px"]), dev)
+    check_train_grads(net, batch, cfg["chunk"])
+    params = list(net.parameters())
+    step = lambda: T.value_and_grad(net, params, batch, chunk=cfg["chunk"])  # noqa: E731
+    sc.reset_launches()
+    step_roles, _ = k4_roles(step, cfg["m"])
+    step_rows = {str(k): v for k, v in sorted(sc.LAUNCHES_BY_ROWS.items())}
+    per_step = T.train_step_scatters(cfg["m"], 2, cfg["chunk"])
+    if sum(step_roles.values()) != per_step or len(step_roles) != 6:
+        raise RuntimeError(f"dpvo@train: a step made K4 launches {step_roles}, the schedule {per_step} in 6 roles")
+    stamp("dpvo@train set-up and gradient check")
+
+    stages = [dict(cfg)] + ([{**cfg, **DPVO_TRAIN_RESUME}] if full else [])
+    n_iters = sum(st["n_iters"] for st in stages)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    counts_by_role, _ = k4_roles(lambda: losses.extend(train_recipe(net, ds, dev, stages)), cfg["m"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    by_rows = {str(k): v for k, v in sorted(sc.LAUNCHES_BY_ROWS.items())}
+    want_rows = {k: v * n_iters for k, v in step_rows.items()}
+    want_roles = {k: v * n_iters for k, v in sorted(step_roles.items())}
+    counts_by_role = dict(sorted(counts_by_role.items()))
+    print(f"[launches] dpvo@train: {json.dumps(launches)}; by rows {json.dumps(by_rows)}; by role "
+          f"{json.dumps(counts_by_role)}; schedule scatter_add {per_step} a step x {n_iters} = {per_step * n_iters}, "
+          f"by rows {json.dumps(want_rows)}, by role {json.dumps(want_roles)}")
+    if (launches["scatter_add"] != per_step * n_iters or by_rows != want_rows
+            or counts_by_role != want_roles or sum(counts_by_role.values()) != launches["scatter_add"]):
+        raise RuntimeError(f"dpvo@train: K4 launches {launches['scatter_add']} by rows {by_rows}, by role "
+                           f"{counts_by_role} differ from the schedule's {per_step * n_iters}, {want_rows}, "
+                           f"{want_roles}")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"[train] dpvo@train: {n_iters} iterations in {wall:.3f} s ({1e3 * wall / n_iters:.3f} ms an iteration, "
+          f"batches made on the host included), peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; loss "
+          f"{first:.4f} -> {last:.4f} (mean of the first and last 10; gate: below {DPVO_TRAIN_LOSS_DROP} x the first)")
+    if not last < DPVO_TRAIN_LOSS_DROP * first:
+        raise RuntimeError(f"dpvo@train: the loss fell from {first:.4f} to {last:.4f} only")
+    # the held-out batch of tests/test_dpvo_train.py's gates (a fresh generator)
+    b = T.make_batch(ds, np.random.default_rng(123), m=cfg["m"], noise_px=cfg["noise_px"])
+    held = T.upload_batch(b, dev)
+    v = b["valid"] > 0
+    base = float(np.linalg.norm(b["cur0"] - b["target"], axis=-1)[v].mean())
+    cur_rand, _ = dpvo_correct(random_net, held, chunk=cfg["chunk"])
+    cur_tr, w_tr = dpvo_correct(net, held, chunk=cfg["chunk"])
+    rand = float(np.linalg.norm(cur_rand - b["target"], axis=-1)[v].mean())
+    tr = float(np.linalg.norm(cur_tr - b["target"], axis=-1)[v].mean())
+    w_mean = float(w_tr.mean())
+    print(f"[gate] dpvo@train held-out batch ({int(v.sum())} valid patches): error {tr:.4f} px after one update "
+          f"against the noise's {base:.4f} (limit {DPVO_TRAIN_NOISE_SHARE} x) and random weights' {rand:.4f} (limit "
+          f"{DPVO_TRAIN_RANDOM_SHARE} x); mean weight {w_mean:.4f} (in (0, 1))")
+    if not (v.sum() >= 8 and tr < DPVO_TRAIN_NOISE_SHARE * base and tr < DPVO_TRAIN_RANDOM_SHARE * rand
+            and 0.0 < w_mean < 1.0):
+        raise RuntimeError("dpvo@train: the trained operator fails the held-out gates")
+    stamp("dpvo@train training and gates")
+
+    # K4 at each of a step's shapes, on the trained weights' step; the
+    # launches are the training run's, by role
+    _, firsts = k4_roles(step, cfg["m"], keep=True)
+    records, counts = [], {}
+    for role, (order, g) in sorted(firsts.items()):
+        name = f"scatter_add[dpvo@train {role}]"
+        per_row = np.bincount(order.idx.cpu().numpy(), minlength=order.num_rows)
+        print(f"[dpvo] {name}: {order.idx.shape[0]} ids x {g.shape[1]} into {order.num_rows} rows "
+              f"({int((per_row > 0).sum())} hit, the longest {int(per_row.max())}); {step_roles[role]} a step, "
+              f"{counts_by_role[role]} in the training run")
+        rec = scatter_case(name, order.idx, g, order.num_rows, dev, order=order)
+        counts[name] = counts_by_role[role]
+        records.append({"name": name, "route": "cuda", "source": "xrdslam_tpu_torch/kernels/scatter.cu",
+                        "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": name,
+                        "shape": [int(order.idx.shape[0]), int(g.shape[1]), order.num_rows],
+                        "calls_a_step": step_roles[role], **rec})
+    stamp("K4 at dpvo@train's shapes")
+
+    # a training step profiled, at the smoke's size and at 600x340 with the
+    # registry's 96 patches
+    big = SyntheticDataset(f"n_frames=4,{office}", device=device)
+    big_batch = T.upload_batch(T.make_batch(big, np.random.default_rng(0), m=DPVO_TRAIN_REGISTRY_M,
+                                            noise_px=cfg["noise_px"]), dev)
+    for tag, bt in (("160x120 m64", batch), (f"600x340 m{DPVO_TRAIN_REGISTRY_M}", big_batch)):
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        T.value_and_grad(net, params, bt, chunk=cfg["chunk"])
+        torch.cuda.synchronize()
+        print(f"[train] dpvo@train step at {tag}: peak {(torch.cuda.max_memory_allocated() - base_mem) / 2**30:.3f} "
+              f"GiB above its inputs")
+        profile(f"dpvo@train {tag}", {"step": lambda bt=bt: T.value_and_grad(net, params, bt, chunk=cfg["chunk"])})
+    stamp("dpvo@train step profiles")
+
+    # the trained tree through the pipeline at dpvo@trained's configuration
+    res = port_trained_run(net, "", DPVO_ATE_LIMIT_CM if full else None)
+    print(f"[dpvo] dpvo@port-trained ({n_iters} iterations trained on the card): sim(3) ATE {res['ate_rmse_cm']:.4f} "
+          f"cm ({'gated' if full else 'reported'}), the committed weights' 1.4839 cm (2,000 iterations)")
+    stamp("dpvo@port-trained run")
+    return records, counts
+
+
+def dpvo_train_seeds(n_seeds: int, device: str = "cuda") -> None:
+    """The whole recipe (``DPVO_TRAIN``, then ``DPVO_TRAIN_RESUME``) from
+    random weights at initial seeds 0 .. ``n_seeds`` - 1 (batch seeds 2 s
+    and 2 s + 1; seed 0 is ``--dpvo-train-full``'s run), each trained
+    tree's ``dpvo@trained`` ATE reported against ``DPVO_ATE_LIMIT_CM`` and
+    their spread; then a witness of the card's training: seed 0's first
+    ``DPVO_WITNESS_STEPS`` steps on the card (float32, K4) against the
+    same steps in float64 on the CPU (the twins), on the same batches."""
+    import torch
+
+    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
+    from xrdslam_tpu_torch.models.vonet import VONet, VONetConfig
+
+    dev = torch.device(device)
+    ds = SyntheticDataset(DPVO_TRAIN_DATA, device=device)
+    ds.prerender()
+    ates = []
+    for seed in range(n_seeds):
+        stages = [{**DPVO_TRAIN, "seed": 2 * seed}, {**DPVO_TRAIN, **DPVO_TRAIN_RESUME, "seed": 2 * seed + 1}]
+        net = VONet(VONetConfig(), seed=seed).to(dev)
+        t0 = time.perf_counter()
+        losses = train_recipe(net, ds, dev, stages)
+        wall = time.perf_counter() - t0
+        res = port_trained_run(net, f"-seed{seed}", None)
+        ates.append(res["ate_rmse_cm"])
+        print(f"[seeds] dpvo@train seed {seed}: {len(losses)} iterations in {wall:.3f} s, loss {np.mean(losses[:10]):.4f} -> "
+              f"{np.mean(losses[-10:]):.4f}; dpvo@port-trained sim(3) ATE {res['ate_rmse_cm']:.4f} cm "
+              f"({'within' if res['ate_rmse_cm'] <= DPVO_ATE_LIMIT_CM else 'above'} {DPVO_ATE_LIMIT_CM} cm)", flush=True)
+        stamp(f"dpvo@train seed {seed}")
+    print(f"[seeds] dpvo@port-trained over {n_seeds} seeds: ATE {json.dumps([round(a, 4) for a in ates])} cm, mean "
+          f"{np.mean(ates):.4f}, min {min(ates):.4f}, max {max(ates):.4f}; {sum(a <= DPVO_ATE_LIMIT_CM for a in ates)} "
+          f"within {DPVO_ATE_LIMIT_CM} cm; the committed weights (JAX, one run) 1.4839 cm")
+    card = VONet(VONetConfig(), seed=0).to(dev)
+    cpu = VONet(VONetConfig(), seed=0).double()
+    start = [p.clone() for p in cpu.parameters()]
+    first = [{**DPVO_TRAIN, "n_iters": DPVO_WITNESS_STEPS}]
+    l32 = train_recipe(card, ds, dev, first)
+    l64 = train_recipe(cpu, ds, torch.device("cpu"), first)
+    rel = [abs(a - b) / abs(b) for a, b in zip(l32, l64)]
+    diff = max(float((a.cpu().double() - b).abs().max()) for a, b in zip(card.parameters(), cpu.parameters()))
+    moved = max(float((b - b0).abs().max()) for b, b0 in zip(cpu.parameters(), start))
+    print(f"[witness] dpvo@train seed 0, {DPVO_WITNESS_STEPS} steps, the card (float32, K4) against the CPU (float64, "
+          f"the twins) on the same batches: losses {json.dumps([round(x, 6) for x in l32])} against "
+          f"{json.dumps([round(x, 6) for x in l64])}; relative difference by step "
+          f"{json.dumps([float(f'{r:.3e}') for r in rel])}; after the steps the parameters differ by at most "
+          f"{diff:.3e}, where the float64 run moved them by at most {moved:.3e}")
+    stamp("dpvo@train witness")
 
 
 class Clock:
@@ -3230,8 +3755,15 @@ def main(argv) -> None:
             r["launches"] = launches[r.pop("counter")]
         print(json.dumps({"kernels": records}))
         return
-    if argv == ["--dpvo"]:
-        records, launches = dpvo_runs(f"height={HEIGHT},width={WIDTH},scene=office")
+    if argv[:1] == ["--dpvo-train-seeds"] and len(argv) == 2:
+        dpvo_train_seeds(int(argv[1]))
+        return
+    if argv in (["--dpvo"], ["--dpvo-train"], ["--dpvo-train-full"]):
+        office = f"height={HEIGHT},width={WIDTH},scene=office"
+        if argv == ["--dpvo"]:
+            records, launches = dpvo_runs(office)
+        else:
+            records, launches = dpvo_train_runs(office, full=argv == ["--dpvo-train-full"])
         for r in records:
             r["launches"] = launches[r.pop("counter")]
         print(json.dumps({"kernels": records}))
@@ -3420,6 +3952,9 @@ def main(argv) -> None:
     dpvo_records, dpvo_launches = dpvo_runs(office)
     records += dpvo_records
     launches.update(dpvo_launches)
+    train_records, train_launches = dpvo_train_runs(office)
+    records += train_records
+    launches.update(train_launches)
     neuralrecon_records, neuralrecon_launches = neuralrecon_runs(office)
     records += neuralrecon_records
     launches.update(neuralrecon_launches)

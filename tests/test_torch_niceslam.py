@@ -151,9 +151,9 @@ def _sched(pkg, group):
     return sched_cls(stage_lr=lr_cls(**dict(zip(("coarse", "middle", "fine", "color"), STAGE_LRS[group]))))
 
 
-def _algo_config(pkg, **over):
+def _algo_config(pkg, model_kw=None, **over):
     """The JAX package's tiny NICE-SLAM (tests/test_e2e_algorithms.py) in
-    either package."""
+    either package; ``model_kw`` adds to its model's settings."""
     cls, mesher, model, adam = ((JNiceSLAMConfig, JMesherConfig, JConvOnetConfig, JAdam) if pkg == "jax" else
                                 (NiceSLAMConfig, MesherConfig, ConvOnetConfig, AdamOptimizerConfig))
     opts = {g: {"optimizer": adam(), "scheduler": _sched(pkg, g)} for g in STAGE_LRS}
@@ -164,7 +164,7 @@ def _algo_config(pkg, **over):
               marching_cubes_bound=BOUND, mapping_color_refine=False, max_keyframes=8,
               mesher=mesher(resolution=32),
               model=model(grid_len_middle=0.32, grid_len_fine=0.16, grid_len_color=0.16, rendering_n_samples=16,
-                          rendering_n_surface=8),
+                          rendering_n_surface=8, **(model_kw or {})),
               optimizers=opts)
     kw.update(over)
     return cls(**kw)
@@ -400,6 +400,13 @@ def test_map_step_matches_jax(case, monkeypatch, coarse):
     middle grid's lr is 0.5: an entry whose gradient is at the level of
     float32 noise steps 0.5 either way, and a later iteration that samples
     it renders another field in each package.)"""
+    map_step_matches_jax(case, monkeypatch, coarse)
+
+
+def map_step_matches_jax(case, monkeypatch, coarse, after=None):
+    """``test_map_step_matches_jax``'s check on ``case``'s two algorithms
+    (the model's parameters restored after it); ``after(model)`` runs
+    after the check, before the restore."""
     jalgo, algo = case.jalgo, case.algo
     cfg = jalgo.config
     n_slots, n_iters, lr_factor = 4, 6, 1.0
@@ -474,6 +481,8 @@ def test_map_step_matches_jax(case, monkeypatch, coarse):
             fine = list(model.grid_shapes).index("grid_fine")
             np.testing.assert_array_equal(model.grids["grid_fine"].detach().numpy()[m], before[fine][m])
         print(f"entries off by more than 1e-5, each with a first gradient under 1e-3 of its leaf's: {excused}")
+        if after is not None:
+            after(model)
     finally:
         with torch.no_grad():
             for p, s in zip(_flat_port(model), start):

@@ -66,13 +66,14 @@ def few_threads():
     torch.set_num_threads(old)
 
 
-def _config(cls, model_cls, adam, sched, n_grad=0):
+def _config(cls, model_cls, adam, sched, n_grad=0, **model_kw):
     opts = {g: {"optimizer": adam(), "scheduler": sched(start_lr=a, end_lr=b)} for g, (a, b) in LRS.items()}
     opts["tracking_pose"] = {"optimizer": adam(lr=2e-3), "scheduler": None}
     return cls(rot_rep="quat", tracking_n_iters=3, mapping_n_iters=5, mapping_first_n_iters=5,
                mapping_window_size=3, tracking_sample=64, mapping_sample=96, min_sample_pixels=8,
                tracking_Wedge=4, tracking_Hedge=4, pixels_adding=300, max_keyframes=4,
-               mapping_pixels_based_on_color_grad=n_grad, model=model_cls(max_points=8192), optimizers=opts)
+               mapping_pixels_based_on_color_grad=n_grad, model=model_cls(max_points=8192, **model_kw),
+               optimizers=opts)
 
 
 def _close(got, want, what, rel=REL):
@@ -101,7 +102,8 @@ def _flat_jax(params):
         return out + [np.asarray(d["out_w"]).T, d["out_b"]]
 
     c = params["color"]
-    leaves = (dec(params["decoder"]["geo"]) + dec(params["decoder"]["col"]) + [params["geometry"]["feats"]]
+    geo = dec(params["decoder"]["geo"]) if "geo" in params["decoder"] else []  # not when loaded and fixed
+    leaves = (geo + dec(params["decoder"]["col"]) + [params["geometry"]["feats"]]
               + [c["feats"], c["relpos_B"], np.asarray(c["nb_w1"]).T, c["nb_b1"], np.asarray(c["nb_w2"]).T, c["nb_b2"]])
     return [np.asarray(a) for a in leaves]
 
@@ -112,15 +114,21 @@ def _flat_port(model):
 
 @pytest.fixture(scope="module")
 def case():
-    """Both algorithms with the same initial model, and a map grown in both
-    from frames 0 and 1 at their true poses with the same pixel picks."""
+    return make_case()
+
+
+def make_case(**model_kw):
+    """Both algorithms with the same initial model (``model_kw`` added to
+    its settings), and a map grown in both from frames 0 and 1 at their
+    true poses with the same pixel picks."""
     ds = JSyntheticDataset(n_frames=2, height=H, width=W)
     jcam = ds.get_camera()
     cam = Camera(**{k: getattr(jcam, k) for k in ("fx", "fy", "cx", "cy", "height", "width")})
-    jalgo = _config(JPointSLAMConfig, JConvOnet2Config, JAdam, JSched).setup(camera=jcam)
-    algo = _config(PointSLAMConfig, ConvOnet2Config, AdamOptimizerConfig, PointSLAMSchedulerConfig).setup(
-        camera=cam, device="cpu")
-    pointslam_params_from_jax(jax.tree_util.tree_map(np.asarray, jalgo.model_params), algo.model)
+    jalgo = _config(JPointSLAMConfig, JConvOnet2Config, JAdam, JSched, **model_kw).setup(camera=jcam)
+    algo = _config(PointSLAMConfig, ConvOnet2Config, AdamOptimizerConfig, PointSLAMSchedulerConfig,
+                   **model_kw).setup(camera=cam, device="cpu")
+    np_frozen = jax.tree_util.tree_map(np.asarray, jalgo.model.frozen)
+    pointslam_params_from_jax(jax.tree_util.tree_map(np.asarray, jalgo.model_params), algo.model, np_frozen)
     frames = []
     for i in (0, 1):
         _, rgb, depth, pose = ds[i]
@@ -293,6 +301,13 @@ def _map_samples(jalgo, key, steps, n_slots, pixs):
 
 
 def test_map_step_matches_jax(case, monkeypatch):
+    map_step_matches_jax(case, monkeypatch)
+
+
+def map_step_matches_jax(case, monkeypatch, after=None, atol=1e-5):
+    """``test_map_step_matches_jax``'s check on ``case``'s two algorithms
+    (the model's parameters restored after it), each entry held to
+    ``atol``; ``after(model)`` runs after the check, before the restore."""
     jalgo, algo = case.jalgo, case.algo
     cfg = jalgo.config
     n_slots, n_iters = cfg.mapping_window_size, cfg.mapping_n_iters
@@ -345,12 +360,14 @@ def test_map_step_matches_jax(case, monkeypatch):
             moved = g != 0
             first = np.argmax(moved, 0)  # the iteration of each entry's first nonzero gradient
             weak = moved.any(0) & (np.take_along_axis(rel, first[None], 0)[0] < 1e-3)
-            off = np.abs(got - want) > 1e-5
+            off = np.abs(got - want) > atol
             assert not (off & ~weak).any(), (i, int((off & ~weak).sum()), float(np.abs(got - want)[~weak].max()))
             assert np.abs(got - want).max() <= 2 * n_iters * lr + 1e-5, i
             assert not np.array_equal(got, b) or np.array_equal(want, b), i  # both moved, or neither
             excused += int(off.sum())
-        print(f"entries off by more than 1e-5, each with a first gradient under 1e-3 of its leaf's: {excused}")
+        print(f"entries off by more than {atol}, each with a first gradient under 1e-3 of its leaf's: {excused}")
+        if after is not None:
+            after(model)
     finally:
         model.load_state_dict(start)
 

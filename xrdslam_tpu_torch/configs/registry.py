@@ -4,14 +4,17 @@ Counterpart of ``xrdslam_tpu/configs/registry.py`` for the ported
 algorithms, with the reference package's hyperparameters: Co-SLAM (the
 reference's entry: the packed patch-row hash, per-scene bounds of Replica
 office0, CLI-overridable; the ``embed_fn_color`` optimizer group is left
-out while ``oneGrid=False`` is not ported), NICE-SLAM, SplaTAM,
+out while ``oneGrid=False`` is not ported), NICE-SLAM (its pretrained
+decoders, which the entry names, are not in the repository: its decoders
+train from scratch), SplaTAM,
 Point-SLAM (its decoders train from scratch: the pretrained
-``middle_fine.pt`` that the reference entry names is not in the
-repository), Vox-Fusion (its random window is the only keyframe
+``middle_fine.pt`` that the entry names, as the reference's does, is not
+in the repository), Vox-Fusion (its random window is the only keyframe
 selection it has) and DPVO (its ``pretrained/dpvo/dpvo.pth`` is not in the
 repository either: the network starts random, with a warning, unless
-``model.pretrained_path`` names a ``.npz`` checkpoint such as
-``pretrained/dpvo_synth.npz``) and NeuralRecon (its
+``model.pretrained_path`` names a checkpoint that exists, a ``.npz`` such
+as ``pretrained/dpvo_synth.npz`` or a ``.pth`` in the reference's layout)
+and NeuralRecon (its
 ``pretrained/neural_recon/model_000047.ckpt`` is absent too: the network
 keeps random weights, with the reference package's warning). Knobs that
 nothing in the port reads yet are left out of each entry.
@@ -180,7 +183,7 @@ algorithm_configs["point-slam"] = RunnerConfig(
             ray_batch_size=3072,
             tracking_Wedge=100,
             tracking_Hedge=100,
-            model=ConvOnet2Config(),
+            model=ConvOnet2Config(pretrained_decoders_middle_fine=Path("pretrained/point_slam/middle_fine.pt")),
             optimizers={
                 "decoder": {"optimizer": AdamOptimizerConfig(), "scheduler": PointSLAMSchedulerConfig(start_lr=0.001, end_lr=0.005)},
                 "geometry": {"optimizer": AdamOptimizerConfig(), "scheduler": PointSLAMSchedulerConfig(start_lr=0.03, end_lr=0.005)},

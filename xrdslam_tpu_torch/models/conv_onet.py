@@ -11,13 +11,17 @@ occupancy alpha compositing (sigmoid(10 occ)).
   * Grids are ``[X, Y, Z, C]`` parameters over the mapping bound enlarged
     to a multiple of ``grid_bound_divisible``; the coarse grid covers that
     bound times ``model_coarse_bound_enlarge`` about the origin.
-  * The pretrained decoders that the registry names are not in the
-    repository, so the decoders train from scratch, as the reference
-    package does without them: the middle and fine decoders (and the
-    coarse one) join the colour decoder in the ``decoder`` group, and
-    mapping adds near-surface occupancy supervision
-    (``fallback_geo_supervision``). Loading such a checkpoint is not
-    ported: a path that exists raises.
+  * The pretrained decoders (``pretrained_decoders_middle_fine``, and
+    ``pretrained_decoders_coarse`` with the coarse level: the reference's
+    torch files, ``utils/torch_convert.load_nice_decoders``) replace the
+    initial middle, fine and coarse decoders when they load; with
+    ``mapping_fix_fine`` they are then frozen, and only the colour decoder
+    is in the ``decoder`` group. The files that the registry names are
+    not in the repository, so there the decoders train from scratch, as
+    the reference package trains them without the files: the middle and
+    fine decoders (and the coarse one) join the colour decoder in the
+    ``decoder`` group, and mapping adds near-surface occupancy
+    supervision (``fallback_geo_supervision``).
   * The reference's frustum feature selection is gradient masking: the
     algorithm multiplies each grid's gradient by ``frustum_grid_masks``
     (host, float64) or ``frustum_grid_masks_dev`` (device, float32).
@@ -26,7 +30,9 @@ occupancy alpha compositing (sigmoid(10 occ)).
 """
 from __future__ import annotations
 
+import copy
 import os
+import pickle
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Type
@@ -39,6 +45,7 @@ from torch import nn
 from ..ops import lie
 from ..ops.rendering import raw2outputs_occupancy
 from ..ops.trilinear import grid_corners, grid_sample_3d, normalize_3d_coordinate
+from ..utils.torch_convert import load_nice_decoders, load_tree_into_decoder
 from .base import Model, ModelConfig
 
 
@@ -183,11 +190,7 @@ class ConvOnet(Model):
         if c.coarse:
             decoders["coarse"] = MLPDecoder(cd, no_xyz=True, generator=generator)
         self.decoders = nn.ModuleDict(decoders)
-        for path in (c.pretrained_decoders_middle_fine, c.pretrained_decoders_coarse if c.coarse else None):
-            if path is not None and os.path.exists(path):
-                raise NotImplementedError(f"loading the pretrained decoders ({path}) is not ported yet (ROADMAP "
-                                          "Queue 1); without the file the decoders train from scratch")
-        self.pretrained_available = False
+        self.pretrained_available = self._load_pretrained()
         # without pretrained weights the middle and fine decoders must train
         trainable = [] if c.mapping_fix_color else ["color"]
         if not c.mapping_fix_fine or not self.pretrained_available:
@@ -200,6 +203,27 @@ class ConvOnet(Model):
         self.grids = nn.ParameterDict({
             name: nn.Parameter(torch.randn((*shape, cd), generator=generator) * GRID_STDS[name])
             for name, shape in self.grid_shapes.items()})
+
+    def _load_pretrained(self) -> bool:
+        """The reference's pretrained middle and fine (and, with the coarse
+        level, coarse) decoders over the initial ones, where
+        ``pretrained_decoders_middle_fine`` names a file; a file that does
+        not convert is reported and the decoders train from scratch, as in
+        the reference package. Returns whether they loaded."""
+        c = self.config
+        mf = c.pretrained_decoders_middle_fine
+        if mf is None or not os.path.exists(mf):
+            return False
+        try:
+            trees = load_nice_decoders(str(mf), str(c.pretrained_decoders_coarse) if c.coarse else None)
+            loaded = copy.deepcopy(self.decoders)
+            for name, tree in trees.items():
+                load_tree_into_decoder(loaded[name], tree, f"decoder.{name}")
+        except (OSError, RuntimeError, KeyError, ValueError, EOFError, pickle.UnpicklingError) as e:
+            print(f"[conv_onet] pretrained decoder load failed ({e}); training decoders from scratch", flush=True)
+            return False
+        self.decoders = loaded
+        return True
 
     def _cell_points(self, shape: Tuple[int, int, int]) -> np.ndarray:
         xs = [np.linspace(self.bounding_box[i, 0], self.bounding_box[i, 1], shape[i]) for i in range(3)]

@@ -22,8 +22,11 @@ Counterpart of ``xrdslam_tpu/models/conv_onet_pointslam.py``:
     uncertainty-weighted depth L1 (clipped at 1e3) and colour L1 over
     pixels under 10x the median of the weighted error.
 
-Both decoders train from scratch, as the reference does when the
-pretrained ``middle_fine.pt`` is absent (it is not in the repository).
+The geometry decoder starts from NICE-SLAM's pretrained middle decoder
+when ``pretrained_decoders_middle_fine`` names the file (frozen, outside
+the ``decoder`` group, with ``mapping_fix_geo_decoder``, the default);
+the registry names it, but the file is not in the repository, so there
+both decoders train from scratch, as the reference does without it.
 Exposure compensation (``model_encode_exposure``) is not ported: it is
 off in the registry and raises here. The reference's options that the
 registry leaves at one value are that value here: dynamic radii on, 1/D^2
@@ -32,7 +35,11 @@ trainable colour decoder.
 """
 from __future__ import annotations
 
+import copy
+import os
+import pickle
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Type
 
 import numpy as np
@@ -42,6 +49,7 @@ from torch import nn
 
 from ..ops.point_table import knn_query
 from ..ops.scatter import table_lookup
+from ..utils.torch_convert import load_nice_decoders, load_tree_into_decoder
 from .base import Model, ModelConfig
 from .conv_onet import MLPDecoder, masked_median
 
@@ -49,12 +57,14 @@ from .conv_onet import MLPDecoder, masked_median
 @dataclass
 class ConvOnet2Config(ModelConfig):
     """The reference's ConvOnet2Config, less what nothing in the port reads
-    (the pretrained decoder's path and its ``mapping_fix_geo_decoder``,
-    ``points_batch_size``, ``tracking_handle_dynamic``, the TPU's
+    (``points_batch_size``, ``tracking_handle_dynamic``, the TPU's
     ``fast_scatter`` and the exposure MLP's width) and the options built in
     at the registry's value (``use_dynamic_radius``, the fixed radii it
     replaces, ``pointcloud_nn_weighting``, ``model_encode_rel_pos_in_col``,
-    ``tracking_use_color_in_tracking``, ``mapping_fix_color_decoder``)."""
+    ``tracking_use_color_in_tracking``, ``mapping_fix_color_decoder``).
+    ``pretrained_decoders_middle_fine`` names NICE-SLAM's
+    ``middle_fine.pt``, whose middle decoder is the geometry decoder's
+    start; with ``mapping_fix_geo_decoder`` a loaded one is frozen."""
 
     _target: Type = field(default_factory=lambda: ConvOnet2)
     c_dim: int = 32
@@ -73,6 +83,8 @@ class ConvOnet2Config(ModelConfig):
     rendering_sigmoid_coef_mapper: float = 0.1
     tracking_w_color_loss: float = 0.5
     mapping_w_color_loss: float = 0.1
+    mapping_fix_geo_decoder: bool = True
+    pretrained_decoders_middle_fine: Optional[Path] = None
 
 
 class ConvOnet2(Model):
@@ -98,11 +110,34 @@ class ConvOnet2(Model):
                 layer.bias.zero_()
         self.geo_decoder = MLPDecoder(c.c_dim, hidden=32, generator=generator)
         self.col_decoder = MLPDecoder(c.c_dim, hidden=32, color=True, generator=generator)
+        self.pretrained_available = self._load_pretrained_geo()
+        self.fixed_geo = self.pretrained_available and c.mapping_fix_geo_decoder
+        self.geo_decoder.requires_grad_(not self.fixed_geo)
+
+    def _load_pretrained_geo(self) -> bool:
+        """The middle decoder of ``pretrained_decoders_middle_fine`` over
+        the initial geometry decoder, where the file exists; a file that
+        does not convert is reported and the decoder trains from scratch,
+        as in the reference package. Returns whether it loaded."""
+        mf = self.config.pretrained_decoders_middle_fine
+        if mf is None or not os.path.exists(mf):
+            return False
+        try:
+            tree = load_nice_decoders(str(mf))["middle"]
+            loaded = copy.deepcopy(self.geo_decoder)
+            load_tree_into_decoder(loaded, tree, "decoder.geo")
+        except (OSError, RuntimeError, KeyError, ValueError, EOFError, pickle.UnpicklingError) as e:
+            print(f"[conv_onet2] pretrained geo decoder load failed ({e}); training from scratch", flush=True)
+            return False
+        self.geo_decoder = loaded
+        return True
 
     def param_groups(self) -> Dict[str, List[torch.Tensor]]:
-        """{optimizer group: [tensors]}: the decoders, the geometry table, the
-        colour table with the relative-position MLP."""
-        dec = list(self.geo_decoder.parameters()) + list(self.col_decoder.parameters())
+        """{optimizer group: [tensors]}: the decoders (the colour decoder
+        alone when the loaded geometry decoder is fixed), the geometry
+        table, the colour table with the relative-position MLP."""
+        geo = [] if self.fixed_geo else list(self.geo_decoder.parameters())
+        dec = geo + list(self.col_decoder.parameters())
         color = [self.col_feats, self.relpos_B, self.nb1.weight, self.nb1.bias, self.nb2.weight, self.nb2.bias]
         return {"decoder": dec, "geometry": [self.geo_feats], "color": color}
 

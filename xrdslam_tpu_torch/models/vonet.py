@@ -3,7 +3,7 @@
 Counterpart of ``xrdslam_tpu/models/vonet.py``. The modules carry the
 reference's parameter names: a reference key ``update/corr/0/w`` is this
 module's ``update.corr.0.weight`` (``b``: ``bias``), so that its flat
-``.npz`` checkpoints (``engine/dpvo_train.save_params``) load one to one.
+``.npz`` checkpoints (``utils/param_tree.save_params``) load one to one.
 Convolutions are OIHW and linear weights [out, in], as in the reference.
 
 * ``BasicEncoder4`` (``fnet`` with instance norm, ``inet`` without): a
@@ -18,11 +18,25 @@ Convolutions are OIHW and linear weights [out, in], as in the reference.
 * ``SoftAgg``: a softmax-weighted sum over each group of edges, broadcast
   back to the group's edges, with a softmax for each channel. The group
   maximum is ``scatter_reduce(amax)``, which no order of its inputs
-  changes; the denominators and the weighted sums are ``scatter_add``
-  (K4 on the card), two launches of 384 columns.
+  changes; it only shifts the softmax, so it is taken without a gradient
+  (the reference differentiates through it: the terms cancel, up to
+  rounding). The denominators and the weighted sums are
+  ``scatter.segment_sum`` (K4 on the card, two launches of 384 columns,
+  over one ordering), and the gathers of the denominators and of the
+  output back to the edges are ``scatter.segment_gather`` on the same
+  ordering, so that in training each of the four is one K4 launch one way
+  or the other.
 
-Inference only: the reference's gradient hooks are the identity in the
-forward pass and are left out.
+The parameters are created without gradients (``requires_grad_(False)``);
+``engine/dpvo_train`` switches them on to train. The reference's gradient
+hooks (GradientClip, GradZero) are the identity in the forward pass and
+are left out, as in the JAX package's training.
+
+``VONetConfig.pretrained_path`` is read as the reference reads it: a
+``.npz`` is the packages' own checkpoint (``utils/param_tree``), another
+existing file a torch checkpoint in the reference's layout
+(``utils/torch_convert.load_dpvo_weights``), and a missing file leaves
+random weights with a warning.
 """
 from __future__ import annotations
 
@@ -37,8 +51,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..configs.base import InstantiateConfig
-from ..engine.dpvo_train import flatten_tree, listify, load_params
 from ..ops import scatter
+from ..utils.param_tree import flatten_tree, listify, load_params
+from ..utils.torch_convert import load_dpvo_weights
 
 DIM = 384  # the update operator's width
 ENC = 32  # the encoders' stem width
@@ -107,16 +122,18 @@ class SoftAgg(nn.Module):
         self.f, self.g, self.h = nn.Linear(dim, dim), nn.Linear(dim, dim), nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor, num_segments: int) -> torch.Tensor:
-        """x [E, D]; seg [E] int32 group ids (padded edges at the reserved
-        last group); mask [E] bool."""
+        """x [E, D]; seg [E] int32 group ids in [0, num_segments) (padded
+        edges at the reserved last group); mask [E] bool."""
+        order = scatter.scatter_order(seg, num_segments)  # one ordering for both sums and both gathers
         logits = torch.where(mask[:, None], self.g(x), torch.full_like(x, -1e30))
-        seg_max = torch.zeros((num_segments, x.shape[1]), dtype=x.dtype, device=x.device).scatter_reduce(
-            0, seg.long()[:, None].expand_as(logits), logits, "amax", include_self=False)
+        with torch.no_grad():  # the maximum only shifts the softmax: no gradient flows through it
+            seg_max = torch.zeros((num_segments, x.shape[1]), dtype=x.dtype, device=x.device).scatter_reduce(
+                0, seg.long()[:, None].expand_as(logits), logits, "amax", include_self=False)
         ex = torch.exp(logits - seg_max[seg.long()]) * mask[:, None].to(x.dtype)
-        denom = scatter.scatter_add(seg, ex, num_segments)
-        wts = ex / torch.clamp(denom[seg.long()], min=1e-12)
-        y = scatter.scatter_add(seg, self.f(x) * wts, num_segments)
-        return self.h(y)[seg.long()]
+        denom = scatter.segment_sum(order, ex)
+        wts = ex / torch.clamp(scatter.segment_gather(denom, order), min=1e-12)
+        y = scatter.segment_sum(order, self.f(x) * wts)
+        return scatter.segment_gather(self.h(y), order)
 
 
 class GatedResidual(nn.Module):
@@ -175,9 +192,10 @@ class UpdateOperator(nn.Module):
 
 @dataclass
 class VONetConfig(InstantiateConfig):
-    """The reference's VONetConfig: a ``.npz`` checkpoint at
-    ``pretrained_path`` is loaded; without a file there, the weights are
-    random (with a warning)."""
+    """The reference's VONetConfig: the checkpoint at ``pretrained_path``
+    is loaded (a ``.npz`` of ``utils/param_tree.save_params``, or a torch
+    ``dpvo.pth`` in the reference's layout); without a file there, the
+    weights are random (with a warning)."""
 
     _target: Type = field(default_factory=lambda: VONet)
     pretrained_path: str = ""
@@ -225,7 +243,8 @@ class VONet(nn.Module):
             self.load_tree(load_params(path))
             self.loaded_from = path
         elif path and os.path.exists(path):
-            raise NotImplementedError(f"{path}: only .npz checkpoints load; the reference .pth loader is not ported")
+            self.load_tree(load_dpvo_weights(path))
+            self.loaded_from = path
         elif path:
             print(f"[vonet] WARNING: pretrained weights not found at {path}; using RANDOM weights — "
                   f"tracking accuracy will be poor (mechanics only)", flush=True)

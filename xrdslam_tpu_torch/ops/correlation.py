@@ -17,12 +17,19 @@ each window cell, with the bilinear weights. That reads 64 feature rows
 for each patch pixel where sampling each cell reads 196, and it is the
 same function: the dot product of a blend is the blend of the dot
 products (float32 sums in another order).
+
+Both gathers, the correlation's rows and a bilinear sample's four taps
+(one gather for all four), go through ``ops.scatter.table_lookup``: their
+forward is plain indexing, and the gradient of the maps, which DPVO's
+training takes, is K4 on the card rather than torch's indexing backward.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from .scatter import table_lookup
 
 
 def bilinear_sample(fmap: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -33,12 +40,17 @@ def bilinear_sample(fmap: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     x0, y0 = torch.floor(x), torch.floor(y)
     fx, fy = x - x0, y - y0
     x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
-    out = None
-    for dx, dy, w in ((0, 0, (1 - fx) * (1 - fy)), (1, 0, fx * (1 - fy)), (0, 1, (1 - fx) * fy), (1, 1, fx * fy)):
+    taps = ((0, 0, (1 - fx) * (1 - fy)), (1, 0, fx * (1 - fy)), (0, 1, (1 - fx) * fy), (1, 1, fx * fy))
+    ids, wts = [], []
+    for dx, dy, w in taps:
         xi, yi = x0i + dx, y0i + dy
         inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-        v = rows[yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)] * (w * inb.to(w.dtype))[..., None]
-        out = v if out is None else out + v
+        ids.append(yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))
+        wts.append(w * inb.to(w.dtype))
+    v = table_lookup(rows, torch.stack(ids, -1))  # [..., 4, C]: the four taps in one gather
+    out = v[..., 0, :] * wts[0][..., None]
+    for k in range(1, 4):
+        out = out + v[..., k, :] * wts[k][..., None]
     return out
 
 
@@ -63,7 +75,7 @@ def _correlate_rows(rows: torch.Tensor, hw: Tuple[int, int], gpatches: torch.Ten
     inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
     flat = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1) + (jj.to(torch.int64) * (H * W)).reshape(E, 1, 1, 1, 1)
     g = gpatches.permute(0, 2, 3, 1).reshape(E * P * P, C, 1)
-    grid = torch.bmm(rows[flat.reshape(E * P * P, side * side)], g).reshape(E, P, P, side, side)
+    grid = torch.bmm(table_lookup(rows, flat.reshape(E * P * P, side * side)), g).reshape(E, P, P, side, side)
     grid = grid * inb.to(grid.dtype)
     out = ((1 - fx) * (1 - fy) * grid[..., :-1, :-1] + fx * (1 - fy) * grid[..., :-1, 1:]
            + (1 - fx) * fy * grid[..., 1:, :-1] + fx * fy * grid[..., 1:, 1:])

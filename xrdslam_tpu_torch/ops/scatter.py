@@ -8,7 +8,10 @@ Point-SLAM's (at their 131,072 and 262,144 rows it takes its exact
 XLA-scatter branch; see the note in ``kernels/scatter.cu``, K4).
 ``table_lookup(table, idx)`` is ``table[idx]`` (plain indexing, as the
 reference's ``jnp.take``) with K4 as its gradient: Point-SLAM's feature
-tables take theirs through it.
+tables take theirs through it. ``segment_sum`` and ``segment_gather`` are
+the differentiable pair over one ordering: the sum's forward is K4 and
+its backward a gather; the gather's backward is K4 (DPVO's SoftAgg, whose
+training differentiates both).
 
 On the card K4 sums each output row in a fixed order, so the same inputs
 give the same bits on every run, as the TPU kernel does. Its ordering
@@ -160,11 +163,52 @@ class _TableLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return scatter_add(idx, g, ctx.num_rows), None
+        return scatter_add(idx.to(torch.int32), g, ctx.num_rows), None
 
 
 def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table [R, C], idx [...] int -> [..., C]; the gradient of ``table`` is
-    ``scatter_add`` (K4 on CUDA)."""
-    out = _TableLookup.apply(table, idx.reshape(-1).to(torch.int32))
+    ``scatter_add`` (K4 on CUDA). The forward indexes with the caller's ids
+    as they are; they are cast to K4's int32 in the backward only."""
+    out = _TableLookup.apply(table, idx.reshape(-1))
     return out.reshape(*idx.shape, table.shape[1])
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, order):
+        ctx.order = order
+        return scatter_add_ordered(order, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.order.idx.long()], None
+
+
+class _SegmentGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, order):
+        ctx.order = order
+        return table[order.idx.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_add_ordered(ctx.order, g.contiguous()), None
+
+
+def segment_sum(order: ScatterOrder, x: torch.Tensor) -> torch.Tensor:
+    """x [N, C] -> [num_rows, C], the sum of the rows of ``x`` by the ids
+    ``order`` was built from (``jax.ops.segment_sum``), differentiable: its
+    forward is ``scatter_add_ordered`` (K4 on CUDA), its backward the gather
+    of the upstream gradient at the ids. A kernel launched through ctypes
+    leaves no ``grad_fn``; this function is what gives K4's sum one. Every
+    id must lie in ``[0, num_rows)``."""
+    return _SegmentSum.apply(x, order)
+
+
+def segment_gather(table: torch.Tensor, order: ScatterOrder) -> torch.Tensor:
+    """table [num_rows, C] -> [N, C], ``table[ids]`` at the ids ``order``
+    was built from, whose table gradient is ``scatter_add_ordered`` (K4 on
+    CUDA) on the same ordering: ``segment_sum``'s transpose. Every id must
+    lie in ``[0, num_rows)``."""
+    return _SegmentGather.apply(table, order)

@@ -17,7 +17,9 @@ and of ``s{i}`` planes for the tri-plane) and copies it into a
 reference Point-SLAM ``params`` tree (``{"geometry": {"feats"}, "color":
 {"feats", "relpos_B", "nb_w1", "nb_b1", "nb_w2", "nb_b2"}, "decoder":
 {"geo": ..., "col": ...}}``, each decoder ``{"B", "pts_w", "pts_b", "fc_w",
-"fc_b", "out_w", "out_b"}``) and copies it into a ``ConvOnet2``.
+"fc_b", "out_w", "out_b"}``), and its ``frozen`` dict where the reference
+keeps the loaded geometry decoder frozen, and copies them into a
+``ConvOnet2``.
 ``niceslam_params_from_jax`` takes the reference NICE-SLAM ``params`` tree
 (``grid_middle``, ``grid_fine``, ``grid_color``, ``grid_coarse`` as [X, Y,
 Z, C], and ``decoder``: ``{name: decoder tree}`` for the trainable
@@ -50,11 +52,12 @@ from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.conv_onet import ConvOnet, MLPDecoder
+from ..models.conv_onet import ConvOnet
 from ..models.conv_onet_pointslam import ConvOnet2
 from ..models.gaussian_splatting import GAUSS_GROUPS
 from ..models.joint_encoding import JointEncoding
 from ..models.sparse_voxel import SparseVoxel
+from .torch_convert import _copy, _linear, load_tree_into_decoder
 
 if TYPE_CHECKING:
     from ..models.neucon import NeuCon
@@ -62,13 +65,6 @@ if TYPE_CHECKING:
     from ..models.vonet import VONet
     from ..algorithms.splatam import SplaTAM
     from ..algorithms.voxfusion import VoxFusion
-
-
-def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
-    src = torch.tensor(np.asarray(src, np.float32))
-    if tuple(src.shape) != tuple(dst.shape):
-        raise ValueError(f"{what}: shape {tuple(src.shape)} does not fit {tuple(dst.shape)}")
-    dst.copy_(src)
 
 
 @torch.no_grad()
@@ -122,26 +118,9 @@ def splatam_state_from_jax(algo: "SplaTAM", np_tree: Dict[str, Any], dead: Any, 
     return algo
 
 
-def _linear(layer: torch.nn.Linear, w: Any, b: Any, what: str) -> None:
-    _copy(layer.weight, np.asarray(w).T, f"{what}.w")
-    _copy(layer.bias, b, f"{what}.b")
-
-
-def _decoder(dec: MLPDecoder, tree: Dict[str, Any], what: str) -> None:
-    if (len(tree["pts_w"]) != len(dec.pts) or ("fc_w" in tree) != (dec.fc is not None)
-            or ("B" in tree) != (dec.B is not None)):
-        raise ValueError(f"{what}: the reference decoder has another layout")
-    if dec.B is not None:
-        _copy(dec.B, tree["B"], f"{what}.B")
-    for i, layer in enumerate(dec.pts):
-        _linear(layer, tree["pts_w"][i], tree["pts_b"][i], f"{what}.pts[{i}]")
-    for i, layer in enumerate(dec.fc or []):
-        _linear(layer, tree["fc_w"][i], tree["fc_b"][i], f"{what}.fc[{i}]")
-    _linear(dec.out, tree["out_w"], tree["out_b"], f"{what}.out")
-
-
 @torch.no_grad()
-def pointslam_params_from_jax(np_tree: Dict[str, Any], model: ConvOnet2) -> ConvOnet2:
+def pointslam_params_from_jax(np_tree: Dict[str, Any], model: ConvOnet2,
+                              frozen: Optional[Dict[str, Any]] = None) -> ConvOnet2:
     _copy(model.geo_feats, np_tree["geometry"]["feats"], "geometry.feats")
     col = np_tree["color"]
     _copy(model.col_feats, col["feats"], "color.feats")
@@ -150,8 +129,9 @@ def pointslam_params_from_jax(np_tree: Dict[str, Any], model: ConvOnet2) -> Conv
     _copy(model.relpos_B, col["relpos_B"], "color.relpos_B")
     _linear(model.nb1, col["nb_w1"], col["nb_b1"], "color.nb1")
     _linear(model.nb2, col["nb_w2"], col["nb_b2"], "color.nb2")
-    _decoder(model.geo_decoder, np_tree["decoder"]["geo"], "decoder.geo")
-    _decoder(model.col_decoder, np_tree["decoder"]["col"], "decoder.col")
+    decoders = {**(frozen or {}), **np_tree["decoder"]}
+    load_tree_into_decoder(model.geo_decoder, decoders["geo"], "decoder.geo")
+    load_tree_into_decoder(model.col_decoder, decoders["col"], "decoder.col")
     return model
 
 
@@ -166,7 +146,7 @@ def niceslam_params_from_jax(np_tree: Dict[str, Any], model: ConvOnet,
     if sorted(trees) != sorted(model.decoders):
         raise ValueError(f"the reference's decoders {sorted(trees)} do not match the model's {sorted(model.decoders)}")
     for name, dec in model.decoders.items():
-        _decoder(dec, trees[name], f"decoder.{name}")
+        load_tree_into_decoder(dec, trees[name], f"decoder.{name}")
     return model
 
 
