@@ -79,9 +79,23 @@
    step with and without densification from one state, the count must grow
    inside the mapping program, the table stay finite); each SplaTAM run's
    K5/K6/K4 launches equal to ``splatam_schedule``; ``[steady]`` gives
-   SplaTAM's s/frame by both paths; and Point-SLAM's main path, the
+   SplaTAM's s/frame by both paths. Beside the Co-SLAM protocol run and
+   the SplaTAM runs, a second process (``start_child``) runs NICE-SLAM's
+   and Vox-Fusion's per-frame A/B runs (``--per-frame`` below; gated, its
+   output printed after a ``[child]`` line once it is joined, before
+   Point-SLAM's runs; the steady s/frame of the runs that overlap it is
+   read with the other process on the card). Then Point-SLAM's main path, the
    registry's settings on the office at 600x340 for 12 frames (gated; K7
-   and K4 launches equal to the schedule's); NICE-SLAM at full width (the
+   and K4 launches equal to the schedule's), with its ``[mesh]`` line
+   (``get_mesh``, TSDF fusion of the keyframes: seconds, counts, finite) and
+   its ``[graph]`` line (office frames 12-16 as one group from the run's
+   final state, its head a keyframe, at ``POINTSLAM_PROFILE_MAP_ITERS``
+   mapping iterations: the group eagerly twice, the first time as the
+   warm-up of its two graphs' captures, the head's and the tail's, and
+   replayed once, the replay
+   held to the eager group's bits and K7 and K4 launches, with the
+   captures' seconds, the pool's MiB, and a replay's wall, device time
+   and busy share); NICE-SLAM at full width (the
    registry's model: C = 32, 5-block decoders, grids of 2.0 / 0.32 / 0.16 /
    0.16 m, 32 + 16 samples, the coarse level) with ``bench_accuracy.py``'s
    settings (``niceslam_protocol_config``) on the office at 600x340 for 60
@@ -91,9 +105,7 @@
    table (the middle grid's, the fine and colour grids', the coarse
    grid's), its ``[graph]`` line (a replay's bits against the eager
    group's), ``render_img`` at the last frame and ``get_mesh`` (finite, not
-   empty); the same settings per frame on the first 20 frames
-   (``XRDSLAM_DISABLE_SUPER=1``, gated, no groups), and ``[steady]`` with
-   both paths' s/frame. K4 is also held to
+   empty), and ``[steady]``. K4 is also held to
    its twin at NICE-SLAM's three shapes, on the corner ids of a mapping
    iteration's samples of office frame 0: the middle grid's (460,800 ids
    into 4,998 x 32), the fine grid's (460,800 into 39,984 x 32) and the
@@ -109,11 +121,8 @@
    ``[insert]`` (frame 0's depth inserted on the device into an empty map
    against the host ``VoxelHashMap``: the same voxel coordinates and
    vertex count), ``[graph]`` (a replay's bits against the eager frame's),
-   ``render_img`` at the last frame and ``get_mesh``; the same run per
-   frame (``XRDSLAM_DISABLE_SUPER=1``, no groups; gated at the ATE of a
-   camera frozen at frame 0 instead of half of it, see
-   ``VOXFUSION_PER_FRAME_NOTE``), and
-   ``[steady]`` with both paths' s/frame. K4 is also held to its twin at
+   ``render_img`` at the last frame and ``get_mesh``, and ``[steady]``.
+   K4 is also held to its twin at
    Vox-Fusion's shape, on the ids and upstream gradient of the last
    iteration of the first mapping call on office frame 0 (819,200 ids
    into 20,000 x 16; voxel 0's 8 rows, where the segments that hit no
@@ -250,6 +259,30 @@ runs each main path for a few frames under
 every operation torch names as non-deterministic (``[determinism]`` lines,
 no result line).
 
+    python3 chip_smoke.py --pointslam-groups
+
+runs Point-SLAM at the registry's settings on 50 office frames through the
+pipeline (~6 minutes with the build): frames 0-29 and 45-49 per frame,
+30-44 in three groups (the head's graph and the tail's, a tail key with
+and one without a keyframe, both captured), gated on ATE as the 12-frame
+run, K7 and K4 launches equal to ``pointslam_schedule`` for that split;
+``[graph]`` (frames 50-54 from the final state at the registry's 300
+mapping iterations, as in the default run), ``[steady]`` (frames 21-29
+per frame, the group frames by the pipeline's clock, the replayed
+group's s/frame) and ``[mesh]`` with the mesh's accuracy, completion and
+completion ratio against the scene's exact mesh, reported (no result
+line).
+
+    python3 chip_smoke.py --per-frame
+
+runs the per-frame A/B runs that the default run starts in its second
+process: NICE-SLAM at the protocol's settings on its first 20 frames and
+Vox-Fusion's registry entry on 60 frames, every frame per frame
+(``XRDSLAM_DISABLE_SUPER=1``), each gated (Vox-Fusion at the ATE of a
+camera frozen at frame 0 instead of half of it, see
+``VOXFUSION_PER_FRAME_NOTE``), schedule, no groups; ``[steady]`` (no
+result line).
+
     python3 chip_smoke.py --pointslam-repeat N --protocol-repeat M --niceslam-seeds S --voxfusion-seeds V
 
 runs Point-SLAM's gated main path N times, then Co-SLAM at the accuracy
@@ -264,12 +297,14 @@ of each repeated kind were identical.
 """
 from __future__ import annotations
 
+import atexit
 import copy
 import functools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -313,6 +348,16 @@ VOXFUSION_PER_FRAME_FROZEN_SHARE = 1.0
 # 300-iteration call (420,000 kernels), and a 60-iteration call about a
 # minute; the iterations are alike.
 POINTSLAM_PROFILE_MAP_ITERS = 30
+# ``[graph] point-slam``: from the final state of the gated 12-frame run,
+# office frames 12-16 as one group (its head mapped and made a keyframe),
+# eagerly twice and through its two graphs once, at
+# POINTSLAM_PROFILE_MAP_ITERS mapping iterations (the smoke's time; the
+# iterations are alike). ``--pointslam-groups`` runs the registry's 300.
+POINTSLAM_GRAPH_HEAD = 12
+# ``--pointslam-groups``: 50 office frames at the registry's settings, so
+# that frames 30-44 go through three groups (keyframes at 0, 20 and 40:
+# both tail keys captured); frames 21-29 are the per-frame figure
+POINTSLAM_GROUP_FRAMES = 50
 # SplaTAM's accuracy gate runs the main path's data and settings with one
 # change: 512 slots per tile. A tile keeps the K nearest of the gaussians
 # whose binning box (3 sigma + 8 px) overlaps it, up to 38 x 38 of them for
@@ -1746,7 +1791,7 @@ def check_point_table(device):
     torch.cuda.synchronize()
     up_s = time.perf_counter() - t0
     up_b = pm.cell_data.nbytes + pm.cell_keys.nbytes
-    print(f"[pointmap] upload after an insertion: {up_b / 2**20:.1f} MiB in {1e3 * up_s:.3f} ms "
+    print(f"[pointmap] the whole map uploaded (device_state): {up_b / 2**20:.1f} MiB in {1e3 * up_s:.3f} ms "
           f"({up_b / up_s / 1e9:.2f} GB/s, host clock)")
     # a mapping iteration's queries: the surface samples of 12 window slots x
     # 416 pixels, on this frame at its pose (as render_rays places them)
@@ -1820,23 +1865,49 @@ def check_point_table(device):
                 "plain_ms": ms[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 "library_ms": lib[name]}
                for name, rep, counter in rows]
+    # an insertion's upload: office frame 1's surface points at
+    # pixels_adding of its pixels added to the host map, then the rows they
+    # changed written into the device map in place (PointMap.upload)
+    _, _, depth1, pose1 = SyntheticDataset(f"n_frames=2,height={HEIGHT},width={WIDTH},scene=office",
+                                           device=str(device))[1]
+    vs, us = np.nonzero(depth1 > 0)
+    pick = np.random.default_rng(1).choice(len(vs), min(cfg.pixels_adding, len(vs)), replace=False)
+    v1, u1 = vs[pick], us[pick]
+    added = pm.add_points(pose1[:3, 3] + (algo._dirs_np[v1, u1] @ pose1[:3, :3].T) * depth1[v1, u1][:, None])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = pm.upload(algo.maps)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    if added == 0 or rows == 0:
+        raise RuntimeError(f"[pointmap] office frame 1: {added} points added, {rows} rows uploaded")
+    up_b = rows * (pm.cell_data.shape[1] * 4 + 12)
+    print(f"[pointmap] an insertion's upload (office frame 1, {added} points): {rows} rows, "
+          f"{up_b / 2**20:.2f} MiB in {1e3 * up_s:.3f} ms ({up_b / up_s / 1e9:.2f} GB/s, host clock)")
     return records + [{"name": "scatter_add[table_lookup]", "route": "cuda",
                        "source": "xrdslam_tpu_torch/kernels/scatter.cu",
                        "replaces": "xrdslam_tpu/ops/pallas_scatter.py:38", "counter": "scatter_add[point-slam]", **k4}]
 
 
-def pointslam_schedule(cfg, n_frames: int):
-    """K7 and K4 launches of a Point-SLAM run in which every frame is mapped
-    and the first is not tracked: one gather per ``query_raw`` (each
-    mapping and tracking iteration); one table gradient per geometry
-    iteration, two per colour iteration, none in tracking."""
-    a = cfg.xrdslam.algorithm
-    if n_frames - 1 > cfg.xrdslam.tracker.lazy_start:
-        raise ValueError("the schedule assumes that every frame is mapped (lazy start)")
-    iters = [a.mapping_first_n_iters] + [a.mapping_n_iters] * (n_frames - 1)
-    geo = [int(a.mapping_geo_iter_ratio * it) for it in iters]
-    return {"row_gather": sum(iters) + a.tracking_n_iters * (n_frames - 1),
-            "scatter_add": sum(g + 2 * (it - g) for g, it in zip(geo, iters))}
+def pointslam_schedule(cfg, n_frames: int, group_heads=()) -> dict:
+    """K7 and K4 launches of a Point-SLAM run as the pipeline schedules it:
+    per frame, every frame but the first tracked, the frames up to
+    ``lazy_start``, every ``map_every``-th after it and the last mapped
+    (the first with ``mapping_first_n_iters``); each group at
+    ``group_heads`` tracks its ``map_every`` frames and maps its head. One
+    gather per ``query_raw`` (each mapping and tracking iteration); one
+    table gradient per geometry iteration, two per colour iteration, none
+    in tracking."""
+    a, t = cfg.xrdslam.algorithm, cfg.xrdslam.tracker
+    G = t.map_every
+    in_group = {h + j for h in group_heads for j in range(G)}
+    tracked = [i for i in range(n_frames) if i > 0 and i not in in_group] + sorted(in_group)
+    maps = [a.mapping_first_n_iters if i == 0 else a.mapping_n_iters for i in range(n_frames)
+            if i not in in_group and (i <= t.lazy_start or i % G == 0 or i == n_frames - 1)]
+    maps += [a.mapping_n_iters] * len(group_heads)
+    geo = [int(a.mapping_geo_iter_ratio * it) for it in maps]
+    return {"row_gather": sum(maps) + a.tracking_n_iters * len(tracked),
+            "scatter_add": sum(g + 2 * (it - g) for g, it in zip(geo, maps))}
 
 
 def splatam_schedule(algo_cfg, n_frames: int) -> dict:
@@ -2359,17 +2430,20 @@ def reference_row(algorithm: str = "co-slam"):
 
 
 _CULLED_GT = {}
+_EXACT = {}
 
 
 def culled_gt_mesh(ds):
-    """The scene's exact mesh (0.02 m) culled to the frames' frustums, once
-    a process for a scene, size and frame count (the trajectory depends on
-    nothing else)."""
+    """The scene's exact mesh (0.02 m, made once a process for a scene)
+    culled to the frames' frustums, once a process for a scene, size and
+    frame count (the trajectory depends on nothing else)."""
     from xrdslam_tpu_torch.utils.mesh_ops import cull_mesh
 
     key = (ds.scene, ds.camera.height, ds.camera.width, len(ds))
     if key not in _CULLED_GT:
-        _CULLED_GT[key] = cull_mesh(ds, ds.gt_mesh(voxel=0.02))
+        if ds.scene not in _EXACT:
+            _EXACT[ds.scene] = ds.gt_mesh(voxel=0.02)
+        _CULLED_GT[key] = cull_mesh(ds, _EXACT[ds.scene])
     return _CULLED_GT[key]
 
 
@@ -2538,6 +2612,168 @@ def profile_steps(pipeline, name: str) -> None:
     profile(name, {"group": lambda: algo.graphs(key, program, inputs),
                    "track": lambda: algo.finish_tracking(algo.dispatch_tracking(fr)),
                    "map": lambda: algo.do_mapping(fr)})
+
+
+def pointslam_group(pipeline, head: int, do_kf: bool, run=None):
+    """Point-SLAM's group of the frames ``head .. head + map_every - 1`` of
+    the run's scene and size (``head``: the first frame after the run)
+    from the run's state, seeded from its last two estimated poses,
+    through ``run`` (by default the algorithm's graphs); returns its device
+    poses (t, q)."""
+    import torch
+
+    from xrdslam_tpu_torch.common.frame import Frame
+    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
+    from xrdslam_tpu_torch.ops import lie_np
+
+    algo, G = pipeline.algorithm, pipeline.config.tracker.map_every
+    cam = pipeline.dataset.get_camera()
+    ds = SyntheticDataset(f"n_frames={head + G},height={cam.height},width={cam.width},scene={pipeline.dataset.scene}",
+                          device=str(algo.device))
+    frames = [Frame(fid=j, rgb=ds[j][1], depth=ds[j][2], rot_rep="quat") for j in range(head, head + G)]
+    est = algo.estimate_c2w_list
+    p1, p2 = (torch.cat([algo._tensor(v) for v in lie_np.matrix_to_pose_vec(np.asarray(c2w, np.float32),
+                                                                            rot_rep="quat")])
+              for c2w in (est[-1], est[-2]))
+    return algo.group_step(frames, do_kf, p1, p2, run=run)
+
+
+def check_pointslam_group(pipeline, name: str, head: int, do_kf: bool) -> dict:
+    """``[graph]`` for Point-SLAM: from one saved state (the model, the
+    device and host maps, the keyframe tables, both generators), the group
+    at ``head`` (``pointslam_group``) eagerly twice (the first time, where
+    its keys are not captured yet, as the capturing call's warm-up) and
+    through its two graphs once. The replay must give the eager group's
+    bits (poses, every state tensor, the host map) and launch the K7 and
+    K4 the eager group launched. Prints the captures (seconds of warm-up
+    and capture), the pool's MiB, each run's wall (the first one's with
+    the capture) and, for the replay, the device time of its two graphs
+    (CUDA events around each) and its busy share of the wall. The state is
+    put back after."""
+    import torch
+
+    from xrdslam_tpu_torch.ops import row_gather as rg
+    from xrdslam_tpu_torch.ops import scatter as sc
+
+    algo = pipeline.algorithm
+    keys = {("head",), (pipeline.config.tracker.map_every, algo.config.mapping_n_iters,
+                        algo.config.mapping_pixels_based_on_color_grad, do_kf)}
+    saved = algo.save_state()
+    # where the keys are new, the first eager run is the capturing call's
+    # warm-up: it runs the group eagerly (its result is the call's), and
+    # the capture after it launches nothing
+    fresh = sorted(str(k) for k in keys - set(algo.graphs.captures))
+    spans = []
+
+    def timed(key, program, inputs):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = algo.graphs(key, program, inputs)
+        ev[1].record()
+        spans.append(("head" if key == ("head",) else "tail", *ev))
+        return out
+
+    runs = []
+    eager = lambda k, f, x: tuple(f(*x))  # noqa: E731
+    for run in (algo.graphs if fresh else eager, eager, timed):
+        algo.load_state(saved)
+        reset_all_launches()
+        spans.clear()
+        t0 = time.perf_counter()
+        out = pointslam_group(pipeline, head, do_kf, run=run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"row_gather": rg.LAUNCHES["row_gather"], "scatter_add": sc.LAUNCHES["scatter_add"]}
+        host = [getattr(algo.point_map, k).copy() for k in ("pos", "cell_keys", "cell_count", "cell_list")]
+        runs.append((wall, [o.clone() for o in out], [t.detach().clone() for t in algo._state_tensors()], host,
+                     launches))
+    algo.load_state(saved)
+    by_graph = {name: a.elapsed_time(b) for name, a, b in spans}
+    device_ms = sum(by_graph.values())
+
+    def same(a, b):
+        return (all(torch.equal(x, y) for x, y in zip(a[1] + a[2], b[1] + b[2]))
+                and all(np.array_equal(x, y) for x, y in zip(a[3], b[3])))
+
+    rep = {"head": head, "do_kf": do_kf, "mapping_n_iters": algo.config.mapping_n_iters, "captured": fresh,
+           "eager_vs_eager_same_bits": same(runs[0], runs[1]), "replay_vs_eager_same_bits": same(runs[0], runs[2]),
+           "eager_s": [runs[0][0], runs[1][0]], "replay_s": runs[2][0], "replay_device_ms": device_ms,
+           "replay_device_ms_by_graph": by_graph,
+           "replay_busy_pct": 100 * device_ms / 1e3 / runs[2][0],
+           "launches_eager": runs[0][4], "launches_replay": runs[2][4],
+           "captures": {str(k): v for k, v in algo.graphs.captures.items()},
+           "replays": {str(k): v for k, v in algo.graphs.replays.items()},
+           "pool_mib": algo.graphs.pool_bytes() / 2**20}
+    print(f"[graph] {name}: {json.dumps(rep)}")
+    if runs[2][4] != runs[0][4] or not runs[0][4]["row_gather"] or not runs[0][4]["scatter_add"]:
+        raise RuntimeError(f"{name}: a replay launched {runs[2][4]}, the eager group {runs[0][4]}")
+    if not rep["replay_vs_eager_same_bits"]:
+        raise RuntimeError(f"{name}: the replay's bits differ from the eager group's")
+    return rep
+
+
+def pointslam_mesh(pipeline, name: str, metrics: bool) -> dict:
+    """``[mesh]``: ``get_mesh`` on the run's state (TSDF fusion of its
+    keyframes at ``mesh_resolution``): its seconds, vertex and face counts,
+    every vertex finite; with ``metrics``, accuracy, completion and
+    completion ratio of the mesh culled to the run's frustums against the
+    scene's exact mesh culled alike, reported (the JAX row of
+    ``BENCH_ACCURACY.json`` fails all six gates), not gated."""
+    import torch
+
+    from xrdslam_tpu_torch.ops import marching_tets
+    from xrdslam_tpu_torch.utils.eval_recon import calc_3d_metric
+    from xrdslam_tpu_torch.utils.mesh_ops import cull_mesh
+
+    algo, ds = pipeline.algorithm, pipeline.dataset
+    t0 = time.perf_counter()
+    mesh = algo.get_mesh()
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    if mesh is None or not len(mesh.faces) or not np.isfinite(mesh.vertices).all():
+        raise RuntimeError(f"{name}: get_mesh gave {'no surface' if mesh is None else 'a non-finite mesh'}")
+    rep = {"get_mesh_s": t_mesh, "keyframes": algo.kf_count, "mesh_resolution": algo.config.mesh_resolution,
+           "vertices": len(mesh.vertices), "faces": len(mesh.faces), "marching_tets": marching_tets.backend()}
+    if metrics:
+        t0 = time.perf_counter()
+        m3 = calc_3d_metric(cull_mesh(ds, mesh, estimate_c2w_list=algo.estimate_c2w_list, eval_rec=True),
+                            culled_gt_mesh(ds))
+        rep.update(metric_s=time.perf_counter() - t0,
+                   **{k: m3[k] for k in ("accuracy_cm", "completion_cm", "completion_ratio_pct")})
+    print(f"[mesh] {name}: {json.dumps(rep)}")
+    return rep
+
+
+def pointslam_groups_run(office: str) -> None:
+    """``--pointslam-groups``: POINTSLAM_GROUP_FRAMES office frames at the
+    registry's settings through the pipeline, gated as the 12-frame run:
+    three groups (30, 35, 40), both tail keys captured, K7 and K4 launches
+    equal to ``pointslam_schedule``'s for that split; ``[steady]``: the
+    per-frame frames 21-29, the group frames by the pipeline's clock (the
+    steady rule and the median group frame) and one group replayed from
+    the final state (frames 50-54, ``[graph]``); ``[mesh]`` on the final
+    state, with its 3-D metrics."""
+    from xrdslam_tpu_torch.configs.registry import algorithm_configs
+
+    cfg = algorithm_configs["point-slam"]
+    pipeline, res = run_slam("point-slam", f"n_frames={POINTSLAM_GROUP_FRAMES},{office}",
+                             ("row_gather", "scatter_add"), ate_limit_cm=ATE_LIMIT_CM, tag="@groups")
+    algo, G = pipeline.algorithm, cfg.xrdslam.tracker.map_every
+    want = pointslam_schedule(cfg, POINTSLAM_GROUP_FRAMES, pipeline.groups)
+    tail = (G, algo.config.mapping_n_iters, algo.config.mapping_pixels_based_on_color_grad)
+    keys = {("head",), tail + (False,), tail + (True,)}
+    print(f"[launches] point-slam@groups: {json.dumps(res['launches'])}; schedule {json.dumps(want)}")
+    if pipeline.groups != [30, 35, 40] or set(algo.graphs.captures) != keys:
+        raise RuntimeError(f"point-slam@groups: groups {pipeline.groups}, captures {list(algo.graphs.captures)}")
+    if res["launches"] != want:
+        raise RuntimeError(f"point-slam@groups: launches {res['launches']} differ from the schedule {want}")
+    ft = pipeline.frame_times
+    rep = check_pointslam_group(pipeline, "point-slam@groups", POINTSLAM_GROUP_FRAMES, False)
+    steady = {"per_frame_21_29_s": float(np.mean(ft[21:30])), "groups_steady_rule_s": res["steady_s_per_frame"],
+              "group_frame_median_s": res["groups"]["group_frame_s_median"],
+              "group_frames_s": [ft[h] for h in pipeline.groups], "replayed_group_s_per_frame": rep["replay_s"] / G}
+    print(f"[steady] point-slam@groups: {json.dumps(steady)}")
+    pointslam_mesh(pipeline, "point-slam@groups", metrics=True)
 
 
 def profile_pointslam(pipeline) -> None:
@@ -2776,10 +3012,11 @@ def determinism_probe() -> None:
 
 def niceslam_runs(office: str, bounds) -> dict:
     """NICE-SLAM's main path at the protocol's settings, 60 office frames,
-    through groups (gated, schedule, replay check, outputs, profile), then
-    the first 20 per frame (gated, schedule, no groups); ``[steady]``. Returns the K4
+    through groups (gated, schedule, replay check, outputs, profile);
+    ``[steady]``; then ``niceslam_pretrained_run``. Returns the K4
     launches of the group run by table, under the K4 records' names (the
-    fine grid's rows take the colour grid's launches too)."""
+    fine grid's rows take the colour grid's launches too). Its per-frame
+    A/B is ``niceslam_per_frame`` (the default run's second process)."""
     import torch
 
     data = f"n_frames={NICESLAM_FRAMES},{office}"
@@ -2799,24 +3036,33 @@ def niceslam_runs(office: str, bounds) -> dict:
     check_group_replay(pipeline, "nice-slam@protocol", exact=False)
     check_outputs(pipeline, "nice-slam@protocol")
     profile_steps(pipeline, "nice-slam@protocol")
+    print(f"[steady] NICE-SLAM s/frame, by the steady rule and the median group frame: {json.dumps(steady)}")
     stamp("nice-slam@protocol run, replay check, outputs and profile")
-    del pipeline
-    torch.cuda.empty_cache()
-    os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
-    try:
-        pipeline, res = run_slam("nice-slam", f"n_frames={NICESLAM_PER_FRAME_FRAMES},{office}", ("scatter_add",),
-                                 ate_limit_cm=ATE_LIMIT_CM, tag="@protocol-per-frame", config=config)
-    finally:
-        del os.environ["XRDSLAM_DISABLE_SUPER"]
-    check_niceslam_run(pipeline, res, groups=False)
-    steady["nice-slam@protocol-per-frame"] = [res["steady_s_per_frame"], None]
-    print(f"[steady] NICE-SLAM s/frame, by the steady rule and the median group frame (the per-frame run's: "
-          f"frames 15-{NICESLAM_PER_FRAME_FRAMES - 1} of its {NICESLAM_PER_FRAME_FRAMES}): {json.dumps(steady)}")
-    stamp("nice-slam@protocol-per-frame run")
     del pipeline
     torch.cuda.empty_cache()
     niceslam_pretrained_run(office, config, trees)
     return launches
+
+
+def niceslam_per_frame(office: str, bounds) -> None:
+    """NICE-SLAM at the protocol's settings on its first
+    NICESLAM_PER_FRAME_FRAMES frames, every frame per frame (the A/B
+    hatch; gated, schedule, no groups); ``[steady]`` (frames 15 on)."""
+    import torch
+
+    os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
+    try:
+        pipeline, res = run_slam("nice-slam", f"n_frames={NICESLAM_PER_FRAME_FRAMES},{office}", ("scatter_add",),
+                                 ate_limit_cm=ATE_LIMIT_CM, tag="@protocol-per-frame",
+                                 config=niceslam_protocol_config(bounds))
+    finally:
+        del os.environ["XRDSLAM_DISABLE_SUPER"]
+    check_niceslam_run(pipeline, res, groups=False)
+    print(f"[steady] NICE-SLAM per frame, frames 15-{NICESLAM_PER_FRAME_FRAMES - 1} of its "
+          f"{NICESLAM_PER_FRAME_FRAMES}: {json.dumps({'nice-slam@protocol-per-frame': res['steady_s_per_frame']})}")
+    stamp("nice-slam@protocol-per-frame run")
+    del pipeline
+    torch.cuda.empty_cache()
 
 
 def niceslam_pretrained_run(office: str, config, trees) -> None:
@@ -2875,10 +3121,9 @@ def niceslam_protocol() -> None:
 def voxfusion_runs(office: str) -> dict:
     """Vox-Fusion's main path, the registry's entry on 60 office frames,
     through groups (gated, schedule, voxels, frame 0's insertion against the
-    host allocator, replay check, outputs, profile), then per frame (gated
-    as VOXFUSION_PER_FRAME_NOTE says; finite poses, schedule, no groups);
-    ``[steady]``. Returns K4's launches of the group
-    run under its record's name."""
+    host allocator, replay check, outputs, profile); ``[steady]``. Returns
+    K4's launches of the group run under its record's name. Its per-frame
+    A/B is ``voxfusion_per_frame`` (the default run's second process)."""
     import torch
 
     data = f"n_frames={VOXFUSION_FRAMES},{office}"
@@ -2890,22 +3135,31 @@ def voxfusion_runs(office: str) -> dict:
     check_group_replay(pipeline, "vox-fusion@registry", exact=False)
     check_outputs(pipeline, "vox-fusion@registry")
     profile_steps(pipeline, "vox-fusion@registry")
+    print(f"[steady] Vox-Fusion s/frame, by the steady rule and the median group frame: {json.dumps(steady)}")
     stamp("vox-fusion@registry run, insertion and replay checks, outputs and profile")
     del pipeline
     torch.cuda.empty_cache()
+    return launches
+
+
+def voxfusion_per_frame(office: str) -> None:
+    """Vox-Fusion's registry entry on the 60 office frames, every frame
+    per frame (the A/B hatch; gated as VOXFUSION_PER_FRAME_NOTE says;
+    finite poses, schedule, no groups); ``[steady]``."""
+    import torch
+
     os.environ["XRDSLAM_DISABLE_SUPER"] = "1"
     try:
-        pipeline, res = run_slam("vox-fusion", data, ("scatter_add",), ate_limit_cm=ATE_LIMIT_CM,
-                                 tag="@registry-per-frame", frozen_share=VOXFUSION_PER_FRAME_FROZEN_SHARE)
+        pipeline, res = run_slam("vox-fusion", f"n_frames={VOXFUSION_FRAMES},{office}", ("scatter_add",),
+                                 ate_limit_cm=ATE_LIMIT_CM, tag="@registry-per-frame",
+                                 frozen_share=VOXFUSION_PER_FRAME_FROZEN_SHARE)
     finally:
         del os.environ["XRDSLAM_DISABLE_SUPER"]
     check_voxfusion_run(pipeline, res, groups=False)
-    steady["vox-fusion@registry-per-frame"] = [res["steady_s_per_frame"], None]
-    print(f"[steady] Vox-Fusion s/frame, by the steady rule and the median group frame: {json.dumps(steady)}")
+    print(f"[steady] Vox-Fusion per frame: {json.dumps({'vox-fusion@registry-per-frame': res['steady_s_per_frame']})}")
     stamp("vox-fusion@registry-per-frame run")
     del pipeline
     torch.cuda.empty_cache()
-    return launches
 
 
 def dpvo_schedule(algo) -> int:
@@ -3710,9 +3964,70 @@ def stamp(what: str) -> None:
     print(f"[elapsed] {what}: {time.perf_counter() - T0:.1f} s", flush=True)
 
 
+# The default run's second process: ``chip_smoke.py --per-frame`` (NICE-SLAM's
+# and Vox-Fusion's per-frame A/B runs) on the same card, started before
+# Co-SLAM's protocol run and joined before Point-SLAM's runs, so that the
+# A/Bs' mostly host-bound frames overlap the protocol row's host work and
+# SplaTAM's runs. It has CHILD_TIMEOUT_S to finish once joined.
+CHILD_ENV = "XRDSLAM_SMOKE_PARENT"
+CHILD_TIMEOUT_S = 600
+
+
+def start_child(argv):
+    """``chip_smoke.py argv`` in a second process, beside this one, its
+    output kept in a temporary file for ``join_child``; it ends when this
+    process ends (``end_with_parent``, and killed at exit)."""
+    out = tempfile.TemporaryFile()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv], cwd=ROOT, stdout=out,
+                            stderr=subprocess.STDOUT, env={**os.environ, CHILD_ENV: str(os.getpid())})
+    atexit.register(stop_child, proc)
+    return proc, out, time.perf_counter()
+
+
+def stop_child(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def join_child(child, what: str) -> None:
+    """Wait for a ``start_child`` process (at most CHILD_TIMEOUT_S), print
+    its output after a ``[child]`` line (its wall and the wait), and raise
+    unless it exited 0."""
+    proc, out, t0 = child
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        stop_child(proc)
+        rc = None
+    now = time.perf_counter()
+    out.seek(0)
+    text = out.read().decode(errors="replace")
+    out.close()
+    print(f"[child] {what}: exit {rc} after {now - t0:.1f} s, {now - t_wait:.1f} s of them waited for here; "
+          f"its output follows")
+    print(text, end="" if text.endswith("\n") else "\n", flush=True)
+    if rc != 0:
+        raise RuntimeError(f"{what}: the second process exited {rc}")
+
+
+def end_with_parent() -> None:
+    """In a ``start_child`` process: be killed when the parent ends
+    (Linux's PR_SET_PDEATHSIG), and exit now if it has ended already."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+    if os.getppid() != int(os.environ[CHILD_ENV]):
+        raise SystemExit("chip_smoke.py: the parent process has ended")
+
+
 def main(argv) -> None:
     import torch
 
+    if os.environ.get(CHILD_ENV):
+        end_with_parent()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available")
     from xrdslam_tpu_torch import kernels
@@ -3757,6 +4072,14 @@ def main(argv) -> None:
         return
     if argv[:1] == ["--dpvo-train-seeds"] and len(argv) == 2:
         dpvo_train_seeds(int(argv[1]))
+        return
+    if argv == ["--pointslam-groups"]:
+        pointslam_groups_run(f"height={HEIGHT},width={WIDTH},scene=office")
+        return
+    if argv == ["--per-frame"]:
+        office = f"height={HEIGHT},width={WIDTH},scene=office"
+        niceslam_per_frame(office, office_bounds(office))
+        voxfusion_per_frame(office)
         return
     if argv in (["--dpvo"], ["--dpvo-train"], ["--dpvo-train-full"]):
         office = f"height={HEIGHT},width={WIDTH},scene=office"
@@ -3849,6 +4172,8 @@ def main(argv) -> None:
         ("@protocol", f"n_frames={PROTOCOL_FRAMES},{office}", protocol_config(bounds), None),
     )
     for tag, data, config, overrides in coslam_runs:
+        if tag == "@protocol":
+            per_frame = start_child(["--per-frame"])  # NICE-SLAM's and Vox-Fusion's per-frame A/Bs
         pipeline, res = run_slam("co-slam", data, ("scatter_add",), overrides, ATE_LIMIT_CM, tag=tag, config=config)
         model = pipeline.algorithm.model
         encoding = "triplane" if model.tp_spec is not None else "packed"
@@ -3933,6 +4258,8 @@ def main(argv) -> None:
     stamp("splaTAM@densify run")
     del pipeline
     torch.cuda.empty_cache()
+    join_child(per_frame, "--per-frame")
+    stamp("NICE-SLAM's and Vox-Fusion's per-frame A/B runs (second process) joined")
     # Point-SLAM's main path: full width, registry settings
     pipeline, res = run_slam("point-slam", f"n_frames={POINTSLAM_FRAMES},{office}", ("row_gather", "scatter_add"),
                              ate_limit_cm=ATE_LIMIT_CM)
@@ -3943,6 +4270,11 @@ def main(argv) -> None:
     launches["row_gather"] = res["launches"]["row_gather"]
     launches["scatter_add[point-slam]"] = res["launches"]["scatter_add"]
     stamp("point-slam run")
+    pointslam_mesh(pipeline, "point-slam", metrics=False)
+    stamp("point-slam mesh")
+    pipeline.algorithm.config.mapping_n_iters = POINTSLAM_PROFILE_MAP_ITERS
+    check_pointslam_group(pipeline, "point-slam", POINTSLAM_FRAMES, do_kf=True)
+    stamp("point-slam group replay")
     profile_pointslam(pipeline)
     stamp("point-slam profile")
     del pipeline

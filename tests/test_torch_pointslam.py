@@ -165,9 +165,10 @@ def test_colour_gradient_pixels_match_jax(case, monkeypatch):
     monkeypatch.setattr(jalgo, "_key", jalgo._key)  # the shared algorithms are restored afterwards
     for a in (jalgo, algo):
         monkeypatch.setattr(a.config, "mapping_pixels_based_on_color_grad", N_GRAD)
-        monkeypatch.setattr(a, "maps", a.maps)
         monkeypatch.setattr(a, "point_map", type(a.point_map)(max_points=a.config.model.max_points,
                                                               cell_size=a.point_map.cell_size))
+        # the port writes an insertion into its device map in place: an empty one of its own here
+        monkeypatch.setattr(a, "maps", a.maps if a is jalgo else a.point_map.device_state("cpu"))
     jalgo.add_points_from_frame(f.jf, 0)
     algo.add_points_from_frame(f.tf, 0)
     jm, tm = jalgo.point_map, algo.point_map
@@ -213,13 +214,27 @@ def rays(case):
         rays_o = jnp.broadcast_to(pose[:3], rays_d.shape)
         return jm.get_loss(p, maps, jax.random.PRNGKey(0), rays_o, rays_d, ts, td, False, "color", r_query=rq)[0]
 
-    def all_losses(p, pose):
+    # an exposure MLP in the JAX layout (w1 [8, 128], w2 [128, 12], as its
+    # init draws them), a latent, and weights of a sum of the colours
+    ep = {"w1": rng.normal(size=(8, 128)) * 0.01, "b1": rng.normal(size=(128,)) * 0.01,
+          "w2": rng.normal(size=(128, 12)) * 0.01, "b2": rng.normal(size=(12,)) * 0.01}
+    ep = {k: v.astype(np.float32) for k, v in ep.items()}
+    latent = rng.normal(size=(8,)).astype(np.float32)
+    w = rng.normal(size=(px.shape[0], 3)).astype(np.float32)
+
+    def exposure_sum(p, ep, lat):
+        rgb = jm.render_rays({**p, "exposure": ep}, maps, jax.random.PRNGKey(0), jnp.asarray(ro), jnp.asarray(rd), td,
+                             "color", r_query=rq, exposure_feat=lat)["rgb"]
+        return jnp.sum(rgb * w), rgb
+
+    def all_losses(p, pose, ep, lat):
         return {"geometry": jax.value_and_grad(map_loss)(p, "geometry"),
                 "color": jax.value_and_grad(map_loss)(p, "color"),
-                "tracking": jax.value_and_grad(track_loss, argnums=1)(p, pose)}
+                "tracking": jax.value_and_grad(track_loss, argnums=1)(p, pose),
+                "exposure": jax.value_and_grad(exposure_sum, argnums=(1, 2), has_aux=True)(p, ep, lat)}
 
-    out = jax.jit(all_losses)(case.jalgo.model_params, jnp.asarray(pose0))
-    return SimpleNamespace(dirs=dirs, px=px, ro=ro, rd=rd, pose0=pose0,
+    out = jax.jit(all_losses)(case.jalgo.model_params, jnp.asarray(pose0), ep, jnp.asarray(latent))
+    return SimpleNamespace(dirs=dirs, px=px, ro=ro, rd=rd, pose0=pose0, exposure=(ep, latent, w),
                            jax=jax.tree_util.tree_map(np.asarray, out))
 
 
@@ -349,27 +364,41 @@ def map_step_matches_jax(case, monkeypatch, after=None, atol=1e-5):
         losses = algo.map_step(torch.from_numpy(images), torch.from_numpy(poses), 2, n_iters,
                                torch.from_numpy(grad_uv), samples=_map_samples(jalgo, key, (geo, n_iters - geo), n_slots, pixs))
         _close(losses.numpy(), losses_j, "losses")
-        lrs = [lr for g, ps in model.param_groups().items() for lr in [max(LRS[g])] * len(ps)]
-        before = _flat_jax(jax.tree_util.tree_map(np.asarray, jalgo.model_params))
         assert len(step_grads) == n_iters
-        excused = 0
-        for i, (p, want, lr, b) in enumerate(zip(_flat_port(model), _flat_jax(jp), lrs, before)):
-            got = p.detach().numpy()
-            g = np.stack([s[i] for s in step_grads])  # [iters, ...]
-            rel = np.abs(g) / np.maximum(np.abs(g).reshape(n_iters, -1).max(1), 1e-30).reshape((-1,) + (1,) * got.ndim)
-            moved = g != 0
-            first = np.argmax(moved, 0)  # the iteration of each entry's first nonzero gradient
-            weak = moved.any(0) & (np.take_along_axis(rel, first[None], 0)[0] < 1e-3)
-            off = np.abs(got - want) > atol
-            assert not (off & ~weak).any(), (i, int((off & ~weak).sum()), float(np.abs(got - want)[~weak].max()))
-            assert np.abs(got - want).max() <= 2 * n_iters * lr + 1e-5, i
-            assert not np.array_equal(got, b) or np.array_equal(want, b), i  # both moved, or neither
-            excused += int(off.sum())
-        print(f"entries off by more than {atol}, each with a first gradient under 1e-3 of its leaf's: {excused}")
+        hold_mapped_params(model, step_grads, jp, jalgo.model_params, atol)
         if after is not None:
             after(model)
     finally:
         model.load_state_dict(start)
+
+
+def hold_mapped_params(model, step_grads, jax_params, jax_before, atol=1e-5) -> int:
+    """The port's parameters after a mapping call against the JAX call's
+    (``jax_params``; ``jax_before`` before it), given the port's gradients
+    of every iteration as Adam got them (``step_grads``): every entry
+    within ``atol`` except those whose first nonzero gradient was below
+    1e-3 of its leaf's largest in that iteration (Adam's first step is lr *
+    g / |g| whatever |g|), each leaf within twice the iterations' largest
+    step, and each leaf moved in both or in neither. Returns the count of
+    excused entries."""
+    n_iters = len(step_grads)
+    lrs = [lr for g, ps in model.param_groups().items() for lr in [max(LRS[g])] * len(ps)]
+    before = _flat_jax(jax.tree_util.tree_map(np.asarray, jax_before))
+    excused = 0
+    for i, (p, want, lr, b) in enumerate(zip(_flat_port(model), _flat_jax(jax_params), lrs, before)):
+        got = p.detach().numpy()
+        g = np.stack([s[i] for s in step_grads])  # [iters, ...]
+        rel = np.abs(g) / np.maximum(np.abs(g).reshape(n_iters, -1).max(1), 1e-30).reshape((-1,) + (1,) * got.ndim)
+        moved = g != 0
+        first = np.argmax(moved, 0)  # the iteration of each entry's first nonzero gradient
+        weak = moved.any(0) & (np.take_along_axis(rel, first[None], 0)[0] < 1e-3)
+        off = np.abs(got - want) > atol
+        assert not (off & ~weak).any(), (i, int((off & ~weak).sum()), float(np.abs(got - want)[~weak].max()))
+        assert np.abs(got - want).max() <= 2 * n_iters * lr + 1e-5, i
+        assert not np.array_equal(got, b) or np.array_equal(want, b), i  # both moved, or neither
+        excused += int(off.sum())
+    print(f"entries off by more than {atol}, each with a first gradient under 1e-3 of its leaf's: {excused}")
+    return excused
 
 
 def test_render_img_at_a_frame(case):
@@ -413,10 +442,94 @@ def test_registry_entry_matches_jax():
     same(ours.xrdslam, theirs.xrdslam, "point-slam")  # the runner's data type: only synthetic data is ported
 
 
-def test_exposure_is_refused():
-    cfg = ConvOnet2Config(max_points=64, model_encode_exposure=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.setup(camera=Camera(fx=10.0, fy=10.0, cx=4.0, cy=3.0, height=8, width=8))
+@pytest.fixture(scope="module")
+def exposure_model(case, rays):
+    """The port's model with an exposure MLP: the case's parameters and the
+    ``rays`` fixture's exposure tree, carried across."""
+    tree = jax.tree_util.tree_map(np.asarray, case.jalgo.model_params)
+    tm = ConvOnet2Config(max_points=8192, model_encode_exposure=True).setup(camera=case.cam)
+    pointslam_params_from_jax({**tree, "exposure": rays.exposure[0]}, tm,
+                              jax.tree_util.tree_map(np.asarray, case.jalgo.model.frozen))
+    return tm
+
+
+def _exposure_render(case, rays, model, latent):
+    px = rays.px
+    return model.render_rays(case.algo.maps, torch.from_numpy(rays.ro), torch.from_numpy(rays.rd),
+                             torch.from_numpy(px[:, 3:4]), "color", r_query=torch.from_numpy(px[:, 4]),
+                             exposure_feat=latent)["rgb"]
+
+
+def test_exposure_render_matches_jax(case, rays, exposure_model):
+    """``render_rays`` with an exposure latent against JAX within 1e-5; the
+    MLP moves the colours, and without a latent it is not applied."""
+    (_, want), _ = rays.jax["exposure"]
+    latent = torch.from_numpy(rays.exposure[1])
+    with torch.no_grad():
+        rgb = _exposure_render(case, rays, exposure_model, latent).numpy()
+        plain = _exposure_render(case, rays, exposure_model, None).numpy()
+        base = _exposure_render(case, rays, case.algo.model, None).numpy()
+    np.testing.assert_allclose(rgb, want, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(plain, base)
+    assert np.abs(rgb - base).max() > 1e-2
+
+
+def test_exposure_grads_match_jax(case, rays, exposure_model):
+    """The gradients of a weighted sum of the compensated colours in the
+    exposure MLP and in the latent against JAX's; as in JAX, no optimizer
+    group of the model holds the MLP."""
+    tm = exposure_model
+    _, (g_ep, g_lat) = rays.jax["exposure"]
+    latent = torch.from_numpy(rays.exposure[1]).requires_grad_(True)
+    mlp = [tm.exposure_w1, tm.exposure_b1, tm.exposure_w2, tm.exposure_b2]
+    loss = torch.sum(_exposure_render(case, rays, tm, latent) * torch.from_numpy(rays.exposure[2]))
+    grads = torch.autograd.grad(loss, mlp + [latent])
+    for g, k in zip(grads, ("w1", "b1", "w2", "b2")):
+        _close(g.numpy(), g_ep[k], f"exposure.{k}")
+        assert np.abs(g_ep[k]).max() > 0, k
+    _close(grads[-1].numpy(), g_lat, "latent")
+    grouped = {id(p) for ps in tm.param_groups().values() for p in ps}
+    assert not any(id(p) in grouped for p in mlp)
+
+
+def test_exposure_mlp_compensates_affine():
+    """The port's version of tests/test_point_slam.py's: training only the
+    exposure MLP and the latent (Adam, lr 1e-2) reproduces a global gain and
+    offset of the rendered colours that the frozen map cannot explain (in
+    60 steps; the JAX test takes 300)."""
+    from xrdslam_tpu_torch.ops.point_table import PointMap
+
+    cam = Camera(fx=60.0, fy=60.0, cx=32.0, cy=24.0, height=48, width=64)
+    model = ConvOnet2Config(max_points=2048, model_encode_exposure=True).setup(
+        camera=cam, generator=torch.Generator().manual_seed(0))
+    pm = PointMap(max_points=2048, cell_size=0.16)
+    rng = np.random.RandomState(1)
+    pm.add_points((rng.rand(400, 3) * 0.5 + np.array([0, 0, -1.5])).astype(np.float32))
+    maps = pm.device_state("cpu")
+    n = 64
+    d = rng.randn(n, 3).astype(np.float32)
+    d[:, 2] = -np.abs(d[:, 2]) - 1.0
+    rays_d = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    rays_o, td, rq = torch.zeros((n, 3)), torch.full((n, 1), 1.5), torch.full((n,), 0.08)
+    with torch.no_grad():
+        base = model.render_rays(maps, rays_o, rays_d, td, "color", rq)["rgb"]
+    target = base * torch.tensor([1.4, 0.7, 1.1]) + torch.tensor([0.1, -0.05, 0.02])
+    latent = torch.zeros(model.config.model_exposure_dim, requires_grad=True)
+    mlp = [model.exposure_w1, model.exposure_b1, model.exposure_w2, model.exposure_b2]
+    opt = torch.optim.Adam(mlp + [latent], lr=1e-2)
+    losses = []
+    for _ in range(60):
+        loss = torch.mean(torch.square(model.render_rays(maps, rays_o, rays_d, td, "color", rq,
+                                                         exposure_feat=latent)["rgb"] - target))
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    with torch.no_grad():
+        out = model.render_rays(maps, rays_o, rays_d, td, "color", rq, exposure_feat=latent)["rgb"]
+    err0, err_n = float(torch.abs(base - target).mean()), float(torch.abs(out - target).mean())
+    assert losses[-1] < 0.05 * losses[0], (losses[0], losses[-1])
+    assert err_n < 0.2 * err0, (err0, err_n)
 
 
 def test_smoke_settings_run_through_the_cli(tmp_path):

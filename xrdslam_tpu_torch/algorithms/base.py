@@ -2,8 +2,9 @@
 
 Counterpart of ``xrdslam_tpu/algorithms/base.py`` without the multi-device
 helpers: the finite-gradient guard, the tracking lr schedule, the static
-mapping window (``window_slot_frame``, ``pad_window``) and the host
-bookkeeping (pose lists, keyframe ids).
+mapping window (``window_slot_frame``, ``pad_window``, and on the device
+``window_arrays``), the group steps' constant-velocity prediction
+(``predict_q``) and the host bookkeeping (pose lists, keyframe ids).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..common.frame import Frame
 from ..configs.base import InstantiateConfig
 from ..engine.optimizers import OptimizerConfig, pieces, unpieces
 from ..models.base import ModelConfig
+from ..ops import lie
 
 
 def default_optimizers() -> Dict[str, Any]:
@@ -107,6 +109,31 @@ class Algorithm:
             images = torch.cat([images, cur_img.expand(pad, *cur_img.shape[1:])], 0)
             poses = torch.cat([poses, cur_pose[None].expand(pad, -1)], 0)
         return images, poses
+
+    def window_arrays(self, slots: torch.Tensor, n_valid: torch.Tensor, cur_img: torch.Tensor,
+                      cur_pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The rows of the keyframe tables ``kf_images`` / ``kf_pose`` (of an
+        algorithm that keeps them) at ``slots`` [S - 1], then the current
+        frame, which also fills every row from ``n_valid - 1`` on, all on the
+        device: (images [S, H, W, C], poses [S, 7]). The same frames as
+        ``pad_window`` on the gathered keyframes."""
+        images = torch.cat([torch.index_select(self.kf_images, 0, slots), cur_img[None]], 0)
+        poses = torch.cat([torch.index_select(self.kf_pose, 0, slots), cur_pose[None]], 0)
+        is_cur = torch.arange(images.shape[0], device=images.device) >= n_valid - 1
+        images = torch.where(is_cur[:, None, None, None], cur_img[None], images)
+        poses = torch.where(is_cur[:, None], cur_pose[None], poses)
+        return images, poses
+
+    @staticmethod
+    def predict_q(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+        """The constant-velocity model on the device, from the last pose
+        vector (t, q) and the one before it: delta = P1 inv(P2), pred =
+        delta P1."""
+        R1 = lie.quaternion_to_matrix(p1[3:])
+        R2 = lie.quaternion_to_matrix(p2[3:])
+        dR = R1 @ R2.T
+        dt = p1[:3] - dR @ p2[:3]
+        return torch.cat([dR @ p1[:3] + dt, lie.matrix_to_quaternion(dR @ R1)])
 
     # -- host bookkeeping --------------------------------------------------
     def add_framepose(self, c2w: np.ndarray, gt_c2w: np.ndarray, gt_c2w_ori: np.ndarray) -> None:

@@ -291,29 +291,6 @@ class NiceSLAM(Algorithm):
     # ------------------------------------------------------------------
     # the fused group step
     # ------------------------------------------------------------------
-    @staticmethod
-    def predict_q(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
-        """The constant-velocity model on the device, from the last pose
-        vector (t, q) and the one before it: delta = P1 inv(P2), pred =
-        delta P1."""
-        R1 = lie.quaternion_to_matrix(p1[3:])
-        R2 = lie.quaternion_to_matrix(p2[3:])
-        dR = R1 @ R2.T
-        dt = p1[:3] - dR @ p2[:3]
-        return torch.cat([dR @ p1[:3] + dt, lie.matrix_to_quaternion(dR @ R1)])
-
-    def window_arrays(self, slots: torch.Tensor, n_valid: torch.Tensor, cur_img: torch.Tensor,
-                      cur_pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The keyframes at ``slots`` [S - 1], then the current frame, which
-        also fills every row from ``n_valid - 1`` on: (images [S, H, W, 4],
-        poses [S, 7])."""
-        images = torch.cat([torch.index_select(self.kf_images, 0, slots), cur_img[None]], 0)
-        poses = torch.cat([torch.index_select(self.kf_pose, 0, slots), cur_pose[None]], 0)
-        is_cur = torch.arange(images.shape[0], device=images.device) >= n_valid - 1
-        images = torch.where(is_cur[:, None, None, None], cur_img[None], images)
-        poses = torch.where(is_cur[:, None], cur_pose[None], poses)
-        return images, poses
-
     def fused_step(self, rgbs: Sequence[torch.Tensor], depths: Sequence[torch.Tensor], fine_slots: torch.Tensor,
                    coarse_slots: torch.Tensor, n_valid_f: torch.Tensor, n_valid_c: torch.Tensor,
                    prev_pose: torch.Tensor, prev2_pose: torch.Tensor, kf_slot: torch.Tensor, optimize_pose: bool,

@@ -1,15 +1,17 @@
-"""Point-SLAM: neural point cloud SLAM with density-driven growth, per frame.
+"""Point-SLAM: neural point cloud SLAM with density-driven growth.
 
-Counterpart of ``xrdslam_tpu/algorithms/point_slam.py`` (its per-frame
-path: ``dispatch_tracking`` / ``finish_tracking``, ``do_mapping``,
-``add_keyframe``, ``render_img``). The structure is the reference
-package's:
+Counterpart of ``xrdslam_tpu/algorithms/point_slam.py``: the per-frame
+path (``dispatch_tracking`` / ``finish_tracking``, ``do_mapping``,
+``add_keyframe``), the group step (``group_step``,
+``dispatch_superstep`` / ``finish_superstep``), ``render_img`` and
+``get_mesh``. The structure is the reference package's:
 
   * before each mapping call, points grow from the current frame
     (``add_points_from_frame``): pixels are picked at random, and three
     points (at depth - r, d, d + r along the ray) are added for each whose
     surface point has fewer than ``pointcloud_min_nn_num`` stored points
-    within its radius r; the host map is then uploaded again;
+    within its radius r; the rows that changed are then written into the
+    device map in place (``PointMap.upload``);
   * radii are dynamic: a Sobel colour-gradient magnitude per pixel maps to
     the add radius and the query radius (``cal_dynamic_radius``); the query
     radius rides along as a fifth image channel (``_frame_rgbdr``);
@@ -22,34 +24,51 @@ package's:
     reference's default);
   * tracking optimises the pose vector (translation and quaternion) for
     ``tracking_n_iters`` iterations on random interior pixels and keeps
-    the pose of lowest loss.
+    the pose of lowest loss;
+  * the mesh is TSDF fusion (``ops/tsdf_fusion.py``) of the keyframes
+    rendered at their poses, over the stored points' box.
 
-The optimization loops are Python loops of eager device work. Pixel
-samples come from a device ``torch.Generator``, point picks and window
-slots from a numpy ``Generator``; both are seeded from ``config.seed`` and
-give other numbers than the reference's ``jax.random`` (whose mapping keys
-also depend on Python's per-process ``hash(str)``). ``track_step`` and
-``map_step`` take pre-drawn samples, and ``add_points_from_frame`` a
-pre-drawn pick, so that a test can feed both packages the same draws.
-The reference's fused super-step and its TSDF mesh are not ported.
+The optimization loops are Python loops of eager device work with no host
+sync, and every tensor that outlives a step is written in place, so that
+a step can be captured into a CUDA graph. A ``map_every``-frame group is
+two device programs with the group's one host sync between them, as in
+the reference: the head (predict the head frame's pose and track it);
+then, on the host, its pose read back, the point insertion at that pose
+and the window's pick; then the tail (map the window, write the head's
+keyframe row, track the other frames, each from the prediction of the two
+poses before it). On the CPU both run eagerly; on the card each is a CUDA
+graph (``engine/graphs.py``), captured once per key (the head; the tail
+per ``(group, mapping_n_iters, n_grad, do_kf)``) and replayed.
+
+Pixel samples come from a device ``torch.Generator``, point picks and
+window slots from a numpy ``Generator``; both are seeded from
+``config.seed`` and give other numbers than the reference's ``jax.random``
+(whose mapping keys also depend on Python's per-process ``hash(str)``).
+``track_step``, ``map_step`` and ``group_step`` take pre-drawn samples,
+and ``add_points_from_frame`` a pre-drawn pick, so that a test can feed
+both packages the same draws.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple, Type
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
 
 from ..common.camera import Camera
 from ..common.frame import Frame
+from ..engine.graphs import GraphReplay, PendingFetch
 from ..engine.optimizers import GroupOptimizers
 from ..engine.schedulers import PointSLAMSchedulerConfig
 from ..models.conv_onet_pointslam import ConvOnet2, ConvOnet2Config
 from ..ops import lie, lie_np
 from ..ops.point_table import PointMap
 from ..ops.sampling import camera_ray_dirs, sample_pixels
+from ..ops.tsdf_fusion import TSDFVolume
+from ..utils.io import Mesh
 from .base import Algorithm, AlgorithmConfig
 
 Samples = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -59,8 +78,7 @@ Samples = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 class PointSLAMConfig(AlgorithmConfig):
     """The reference's PointSLAMConfig, less what nothing in the port reads
     (``mapping_BA``, which the reference leaves off and does not implement;
-    ``mesh_resolution``, for the TSDF mesh; ``map_chunk_iters``, which kept
-    each TPU program under its watchdog)."""
+    ``map_chunk_iters``, which kept each TPU program under its watchdog)."""
 
     _target: Type = field(default_factory=lambda: PointSLAM)
     model: ConvOnet2Config = field(default_factory=ConvOnet2Config)
@@ -76,6 +94,7 @@ class PointSLAMConfig(AlgorithmConfig):
     # colour-gradient pixels
     mapping_pixels_based_on_color_grad: int = 0
     max_keyframes: int = 64
+    mesh_resolution: int = 256  # TSDF voxels along the longest side of the points' box
     seed: int = 0
 
 
@@ -101,6 +120,7 @@ class PointSLAM(Algorithm):
         self.kf_count = 0
         self._dirs = camera_ray_dirs(camera, self.device)
         self._dirs_np = camera_ray_dirs(camera).numpy()
+        self.graphs = GraphReplay(self.generator)
 
     # ------------------------------------------------------------------
     # host-side helpers
@@ -151,7 +171,8 @@ class PointSLAM(Algorithm):
     def add_points_from_frame(self, frame: Frame, n_pixels: int, pick: Optional[np.ndarray] = None) -> None:
         """Density-driven point addition, the add radius per pixel; ``pick``
         indexes the frame's valid pixels (drawn from ``self.rng`` when
-        omitted). Uploads the map again when points were added."""
+        omitted). Writes the changed rows into the device map when points
+        were added."""
         d = frame.depth
         vs, us = np.nonzero(d > 0)
         if len(vs) == 0:
@@ -182,7 +203,7 @@ class PointSLAM(Algorithm):
         zs = z[need][:, None] + spread * np.array([-1.0, 0.0, 1.0])[None, :]
         pts = (c2w[:3, 3][None, None] + dirs_w[need][:, None, :] * zs[..., None]).reshape(-1, 3)
         if self.point_map.add_points(pts):
-            self.maps = self.point_map.device_state(self.device)
+            self.point_map.upload(self.maps)
 
     # ------------------------------------------------------------------
     # device steps
@@ -223,19 +244,21 @@ class PointSLAM(Algorithm):
             opt.update({"tracking_pose": self._finite_guard(loss, [g])}, state, params)
         return best_pose, best_loss
 
-    def map_step(self, images: torch.Tensor, poses: torch.Tensor, n_valid: int, n_iters: int,
+    def map_step(self, images: torch.Tensor, poses: torch.Tensor, n_valid, n_iters: int,
                  grad_uv: Optional[torch.Tensor] = None, samples: Optional[Samples] = None) -> torch.Tensor:
         """``n_iters`` Adam steps on the map: the geometry phase, then the
         colour phase, one Adam state across both. Each iteration renders
         ``max(mapping_sample // S, min_sample_pixels)`` random pixels of each
         of the S window slots (``images`` [S, H, W, 5], ``poses`` [S, 7], the
-        first ``n_valid`` real), plus ``grad_uv`` [n, 2] (u, v) on the last;
-        ``samples[i]`` = (u, v) [S, pixels] when given. Returns the losses."""
+        first ``n_valid`` real: an int or a device tensor), plus ``grad_uv``
+        [n, 2] (u, v) on the last; ``samples[i]`` = (u, v) [S, pixels] when
+        given. Returns the losses."""
         cfg = self.config
         H, W = self.camera.height, self.camera.width
         n_slots = images.shape[0]
         pixs = max(cfg.mapping_sample // n_slots, cfg.min_sample_pixels)
-        fi = torch.tensor([self.window_slot_frame(f, n_valid, n_slots) for f in range(n_slots)], device=self.device)
+        # window_slot_frame, for a device n_valid too
+        fi = ((torch.arange(n_slots, device=images.device) + 1) * n_valid - 1) // n_slots
         slot = torch.arange(n_slots, device=self.device).repeat_interleave(pixs)
         if grad_uv is not None and grad_uv.shape[0] > 0:
             slot = torch.cat([slot, torch.full((grad_uv.shape[0],), n_slots - 1, device=self.device)])
@@ -276,13 +299,156 @@ class PointSLAM(Algorithm):
                     grouped[g], grads = grads[:len(ps)], grads[len(ps):]
                 opt.update(grouped, state, groups)
                 losses.append(loss)
-        return torch.stack(losses)
+        return torch.stack(losses) if losses else images.new_zeros((0,))
+
+    # ------------------------------------------------------------------
+    # the group step
+    # ------------------------------------------------------------------
+    def head_step(self, rgbdr: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                  samples: Optional[Samples] = None) -> torch.Tensor:
+        """The group's first program: track the head frame (``rgbdr`` [H, W,
+        5]) from the constant-velocity prediction of the two poses before
+        it; returns its best pose [7]."""
+        best, _ = self.track_step(rgbdr, self.predict_q(p1, p2), samples)
+        return best
+
+    def tail_step(self, rgbdrs: Sequence[torch.Tensor], cur_pose: torch.Tensor, prev_pose: torch.Tensor,
+                  win_slots: torch.Tensor, n_valid: torch.Tensor, kf_slot: torch.Tensor,
+                  grad_uv: Optional[torch.Tensor], do_kf: bool, samples: Optional[Tuple[Any, List[Any]]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The group's second program: ``mapping_n_iters`` mapping steps on
+        the window (the keyframes at ``win_slots`` [window - 1], the head
+        from row ``n_valid - 1`` on), with ``do_kf`` the head's image and
+        pose ``cur_pose`` written at keyframe row ``kf_slot`` [1], then each
+        other frame of ``rgbdrs`` tracked from the prediction of the two
+        poses before it (the first from ``cur_pose`` and ``prev_pose``).
+        ``samples`` = (the mapping's, [each tail frame's tracking]) when
+        given. Returns (t [G, 3], q [G, 4]); the head's is ``cur_pose``."""
+        map_samples, track_samples = samples if samples is not None else (None, [None] * (len(rgbdrs) - 1))
+        cur_img = rgbdrs[0]
+        images, poses = self.window_arrays(win_slots, n_valid, cur_img, cur_pose)
+        self.map_step(images, poses, n_valid, self.config.mapping_n_iters, grad_uv, map_samples)
+        if do_kf:
+            with torch.no_grad():
+                self.kf_images.index_copy_(0, kf_slot, cur_img[None])
+                self.kf_pose.index_copy_(0, kf_slot, cur_pose[None])
+        out = [cur_pose]
+        p1, p2 = cur_pose, prev_pose
+        for rgbdr, s in zip(rgbdrs[1:], track_samples):
+            bj = self.head_step(rgbdr, p1, p2, s)
+            out.append(bj)
+            p1, p2 = bj, p1
+        out = torch.stack(out)
+        return out[:, :3], out[:, 3:]
+
+    def _window_slots(self) -> List[int]:
+        """The mapping window's keyframe slots: all while they fit
+        ``window - 1``, else ``window - 2`` picked at random and the newest."""
+        k = self.config.mapping_window_size - 1
+        if self.kf_count <= k:
+            return list(range(self.kf_count))
+        return sorted(int(s) for s in self.rng.permutation(self.kf_count - 1)[: k - 1]) + [self.kf_count - 1]
+
+    def group_step(self, frames: List[Frame], do_kf: bool, p1: torch.Tensor, p2: torch.Tensor,
+                   run: Optional[Callable] = None, draws: Optional[Dict[str, Any]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One group of ``len(frames)`` frames (``frames[0]``, the head, is
+        mapped) from the device pose vectors ``p1``, ``p2`` of the two frames
+        before it: the head program; its pose fetched (the group's one host
+        sync) and set on the head frame; the point insertion at that pose;
+        the window's slots; the tail program. ``run(key, program, inputs)``
+        runs a program (by default ``self.graphs``: a CUDA graph replay on
+        the card, eager on the CPU). ``draws`` may hold pre-drawn ``head``
+        samples, the insertion's ``pick``, the window's ``slots`` and the
+        tail's ``tail`` samples (``tail_step``'s). Returns the group's (t [G,
+        3], q [G, 4]) on the device."""
+        cfg = self.config
+        if do_kf and self.kf_count >= cfg.max_keyframes:
+            raise RuntimeError("keyframe capacity exceeded; raise max_keyframes")
+        run = self.graphs if run is None else run
+        draws = draws or {}
+        group, cur = len(frames), frames[0]
+        rgbdrs = [self._frame_rgbdr(f) for f in frames]
+        (best,) = run(("head",), lambda *x: (self.head_step(*x, samples=draws.get("head")),), [rgbdrs[0], p1, p2])
+        bp = PendingFetch(best).wait()[0]
+        cur.t, cur.r = bp[:3].copy(), bp[3:].copy()
+        self.add_points_from_frame(cur, cfg.pixels_adding, pick=draws.get("pick"))
+        slots = draws["slots"] if "slots" in draws else self._window_slots()
+        n_grad = cfg.mapping_pixels_based_on_color_grad
+        key = (group, cfg.mapping_n_iters, n_grad, do_kf)
+
+        def tail(*x: torch.Tensor):
+            grad_uv = x[group + 5] if n_grad > 0 else None
+            return self.tail_step(x[:group], *x[group:group + 5], grad_uv, do_kf, samples=draws.get("tail"))
+
+        wn = cfg.mapping_window_size
+        inputs = rgbdrs + [best, p1, self._index(slots + [0] * (wn - 1 - len(slots))), self._index(len(slots) + 1),
+                           self._index([self.kf_count])]
+        if n_grad > 0:
+            gu, gv = self._top_grad_pixels(cur.rgb, n_grad)
+            inputs.append(self._index(np.stack([gu, gv], -1)))
+        pt, pq = run(key, tail, inputs)
+        if do_kf:
+            self.kf_count += 1
+            self.keyframe_fids.append(cur.fid)
+        return pt, pq
+
+    def dispatch_superstep(self, frames: List[Frame], do_kf: bool, prev_c2w: Optional[np.ndarray] = None,
+                           prev2_c2w: Optional[np.ndarray] = None,
+                           prev_tr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                           prev2_tr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """``group_step`` on ``frames`` through the graphs; requires
+        ``is_initialized()``. The predecessor poses come as host matrices or
+        as the device (t, q) of the previous group's output. Returns the
+        handle for ``finish_superstep``: the group's device poses (t [G, 3],
+        q [G, 4]) and their copy to the host, under way."""
+        if prev_tr is None:
+            prev_tr, prev2_tr = (tuple(self._tensor(v) for v in lie_np.matrix_to_pose_vec(
+                np.asarray(c2w, np.float32), rot_rep="quat")) for c2w in (prev_c2w, prev2_c2w))
+        pt, pq = self.group_step(frames, do_kf, torch.cat(prev_tr), torch.cat(prev2_tr))
+        return pt, pq, PendingFetch(pt, pq)
+
+    def finish_superstep(self, handle) -> List[np.ndarray]:
+        """One pose fetch for the whole group -> its c2w matrices."""
+        pt, pq = handle[2].wait()
+        return [lie_np.pose_vec_to_matrix(pt[j], pq[j], rot_rep="quat") for j in range(pt.shape[0])]
+
+    def save_state(self):
+        """A copy of everything a group step changes: the model's
+        parameters, the device map, the keyframe table and poses, the host
+        point map, the generators' states and the keyframe bookkeeping."""
+        return ([t.detach().clone() for t in self._state_tensors()], self.generator.get_state(),
+                self.rng.bit_generator.state, copy.deepcopy(self.point_map), self.kf_count, list(self.keyframe_fids))
+
+    def load_state(self, saved) -> None:
+        """Put back a ``save_state`` copy, the device tensors in place."""
+        tensors, gen, rng, point_map, kf_count, fids = saved
+        with torch.no_grad():
+            for dst, src in zip(self._state_tensors(), tensors):
+                dst.copy_(src)
+        self.generator.set_state(gen)
+        self.rng.bit_generator.state = rng
+        self.point_map = copy.deepcopy(point_map)
+        self.maps["n_points"] = self.point_map.n_points
+        self.kf_count, self.keyframe_fids[:] = kf_count, fids
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """The state tensors: the model's parameters, the device map's keys
+        and rows, then the keyframe table and poses."""
+        return list(self.model.parameters()) + [self.maps["cell_keys"], self.maps["cell_data"], self.kf_images,
+                                                self.kf_pose]
 
     # ------------------------------------------------------------------
     # host API (called by the pipeline)
     # ------------------------------------------------------------------
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def _index(self, values) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.int64), device=self.device)
+
     def _pose_vec(self, frame: Frame) -> torch.Tensor:
-        return torch.as_tensor(np.concatenate([frame.t, frame.r]).astype(np.float32), device=self.device)
+        return self._tensor(np.concatenate([frame.t, frame.r]))
 
     def dispatch_tracking(self, cur_frame: Frame) -> Optional[torch.Tensor]:
         if not self.is_initialized():
@@ -300,14 +466,10 @@ class PointSLAM(Algorithm):
         cfg = self.config
         first = not self.is_initialized()
         self.add_points_from_frame(cur_frame, cfg.pixels_adding)
-        k = cfg.mapping_window_size - 1
-        if self.kf_count <= k:
-            slots = list(range(self.kf_count))
-        else:
-            slots = sorted(int(s) for s in self.rng.permutation(self.kf_count - 1)[: k - 1]) + [self.kf_count - 1]
+        slots = self._window_slots()
         cur_img = self._frame_rgbdr(cur_frame)[None]
         cur_pose = self._pose_vec(cur_frame)
-        idx = torch.tensor(slots, dtype=torch.long, device=self.device)
+        idx = self._index(slots)
         images = torch.cat([self.kf_images[idx], cur_img], 0)
         poses = torch.cat([self.kf_pose[idx], cur_pose[None]], 0)
         images, poses = self.pad_window(images, poses, cur_img, cur_pose, cfg.mapping_window_size)
@@ -330,19 +492,23 @@ class PointSLAM(Algorithm):
         self.kf_count += 1
         self.keyframe_fids.append(keyframe.fid)
 
+    # ------------------------------------------------------------------
+    # outputs
+    # ------------------------------------------------------------------
     @torch.no_grad()
-    def render_img(self, c2w: np.ndarray, gt_depth: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
+    def render_img(self, c2w: np.ndarray, gt_depth: Optional[np.ndarray] = None, idx: Optional[int] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
         """(rgb [H, W, 3] in [0, 1], depth [H, W]) rendered at ``c2w`` in
         chunks of ``ray_batch_size`` rays at the largest query radius; the
         last chunk is padded as the reference pads it, since rays without
-        depth sample by a statistic of their chunk."""
+        depth sample by a statistic of their chunk. ``idx`` (the frame's
+        index) is the reference's signature and unused."""
         cam = self.camera
-        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=self.device)
+        c2w = self._tensor(c2w)
         rays_d = self._dirs.reshape(-1, 3) @ c2w[:3, :3].T
         rays_o = c2w[:3, 3].expand(rays_d.shape)
         n = rays_d.shape[0]
-        gt = (torch.zeros((n, 1), device=self.device) if gt_depth is None
-              else torch.as_tensor(np.asarray(gt_depth, np.float32), device=self.device).reshape(-1, 1))
+        gt = torch.zeros((n, 1), device=self.device) if gt_depth is None else self._tensor(gt_depth).reshape(-1, 1)
         bs = self.config.ray_batch_size
         rq = torch.full((bs,), self.model.max_query_radius(), device=self.device)
         dep, col = [], []
@@ -358,3 +524,26 @@ class PointSLAM(Algorithm):
             col.append(out["rgb"][:bs - pad])
         rgb = torch.clamp(torch.cat(col), 0, 1).reshape(cam.height, cam.width, 3)
         return rgb.cpu().numpy(), torch.cat(dep).reshape(cam.height, cam.width).cpu().numpy()
+
+    @torch.no_grad()
+    def get_mesh(self) -> Optional[Mesh]:
+        """TSDF fusion of the keyframes, each rendered at its pose with its
+        own depth as the samples' guide (the rendered depth kept where the
+        keyframe has depth), over the stored points' box grown by 0.2 m at
+        ``mesh_resolution`` voxels along its longest side; None without
+        keyframes or points."""
+        n = self.point_map.n_points
+        if self.kf_count == 0 or n == 0:
+            return None
+        pts = self.point_map.pos[:n]
+        lo, hi = pts.min(0) - 0.2, pts.max(0) + 0.2
+        vol = TSDFVolume(np.stack([lo, hi], -1), voxel_size=float((hi - lo).max()) / self.config.mesh_resolution,
+                         device=self.device)
+        kf_pose = self.kf_pose[:self.kf_count].cpu().numpy()
+        for i in range(self.kf_count):
+            c2w = lie_np.pose_vec_to_matrix(kf_pose[i, :3], kf_pose[i, 3:], rot_rep="quat")
+            kf_depth = self.kf_images[i, ..., 3]
+            color, depth = self.render_img(c2w, gt_depth=kf_depth.cpu().numpy())
+            depth = torch.where(kf_depth > 0, self._tensor(depth), torch.zeros_like(kf_depth))
+            vol.integrate(self._tensor(color), depth, c2w, self.camera)
+        return vol.extract_mesh()

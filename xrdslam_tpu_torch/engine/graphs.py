@@ -16,7 +16,10 @@ state it closes over, and writes that state in place.
   after the replay before them), replays the graph there, and returns
   copies of the graph's outputs made on that stream (the next replay
   overwrites the static ones). A capture that fails raises; nothing falls
-  back to eager on the card.
+  back to eager on the card. A capture runs after a garbage collection and
+  with the collector off: a collection inside it could destroy an earlier,
+  dead graph (a program's closure holds its algorithm in a cycle), which
+  CUDA refuses while a stream captures, and the capture would fail.
 * The run's generator is registered with every graph, so that each replay
   draws new numbers, the ones an eager call from the same generator state
   would draw. All keys share one memory pool: their graphs never run
@@ -33,6 +36,7 @@ a pinned buffer, a copy on the current stream and an event to wait for.
 """
 from __future__ import annotations
 
+import gc
 import time
 from collections import defaultdict
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
@@ -111,10 +115,15 @@ class GraphReplay:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         before = _counts()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
                 static_out = tuple(fn(*static_in))
         finally:
+            if collecting:
+                gc.enable()
             launches = _restore_counts(before)
         current.wait_stream(self._stream)
         self._graphs[key] = _Graph(graph, static_in, static_out, launches)

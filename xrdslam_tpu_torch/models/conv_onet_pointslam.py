@@ -27,8 +27,12 @@ when ``pretrained_decoders_middle_fine`` names the file (frozen, outside
 the ``decoder`` group, with ``mapping_fix_geo_decoder``, the default);
 the registry names it, but the file is not in the repository, so there
 both decoders train from scratch, as the reference does without it.
-Exposure compensation (``model_encode_exposure``) is not ported: it is
-off in the registry and raises here. The reference's options that the
+With ``model_encode_exposure`` (off in the registry) the model holds the
+reference's exposure MLP: a per-frame latent ``exposure_feat`` through a
+Softplus(beta 100) hidden layer to a 3x3 colour matrix and an offset,
+applied to the decoded colours of ``query_raw`` where a latent is given.
+As in the reference, the algorithm passes none and no optimizer group
+holds the MLP. The reference's options that the
 registry leaves at one value are that value here: dynamic radii on, 1/D^2
 weighting, the relative-position MLP on, colour in the tracking loss, a
 trainable colour decoder.
@@ -58,7 +62,7 @@ from .conv_onet import MLPDecoder, masked_median
 class ConvOnet2Config(ModelConfig):
     """The reference's ConvOnet2Config, less what nothing in the port reads
     (``points_batch_size``, ``tracking_handle_dynamic``, the TPU's
-    ``fast_scatter`` and the exposure MLP's width) and the options built in
+    ``fast_scatter``) and the options built in
     at the registry's value (``use_dynamic_radius``, the fixed radii it
     replaces, ``pointcloud_nn_weighting``, ``model_encode_rel_pos_in_col``,
     ``tracking_use_color_in_tracking``, ``mapping_fix_color_decoder``).
@@ -76,7 +80,8 @@ class ConvOnet2Config(ModelConfig):
     pointcloud_radius_add_min: float = 0.02
     pointcloud_radius_query_ratio: int = 2
     pointcloud_color_grad_threshold: float = 0.15
-    model_encode_exposure: bool = False  # not ported: raises
+    model_encode_exposure: bool = False  # the per-frame exposure MLP (no optimizer group takes it)
+    model_exposure_dim: int = 8
     rendering_n_surface: int = 5
     rendering_near_end_surface: float = 0.98
     rendering_far_end_surface: float = 1.02
@@ -95,8 +100,6 @@ class ConvOnet2(Model):
         super().__init__(config, camera, np.zeros((3, 2), np.float32) if bounding_box is None else bounding_box,
                          **kwargs)
         c = config
-        if c.model_encode_exposure:
-            raise NotImplementedError("Point-SLAM's exposure compensation is not ported yet (ROADMAP Queue 1)")
         self.geo_feats = nn.Parameter(torch.randn((c.max_points, c.c_dim), generator=generator) * 0.01)
         self.col_feats = nn.Parameter(torch.randn((c.max_points, c.c_dim), generator=generator) * 0.01)
         hid = 128
@@ -113,6 +116,13 @@ class ConvOnet2(Model):
         self.pretrained_available = self._load_pretrained_geo()
         self.fixed_geo = self.pretrained_available and c.mapping_fix_geo_decoder
         self.geo_decoder.requires_grad_(not self.fixed_geo)
+        self.has_exposure = c.model_encode_exposure
+        if self.has_exposure:
+            # the reference's layout and draws: latent @ w1 + b1, h @ w2 + b2
+            self.exposure_w1 = nn.Parameter(torch.randn((c.model_exposure_dim, hid), generator=generator) * 0.01)
+            self.exposure_b1 = nn.Parameter(torch.zeros(hid))
+            self.exposure_w2 = nn.Parameter(torch.randn((hid, 12), generator=generator) * 0.01)
+            self.exposure_b2 = nn.Parameter(torch.zeros(12))
 
     def _load_pretrained_geo(self) -> bool:
         """The middle decoder of ``pretrained_decoders_middle_fine`` over
@@ -140,6 +150,14 @@ class ConvOnet2(Model):
         dec = geo + list(self.col_decoder.parameters())
         color = [self.col_feats, self.relpos_B, self.nb1.weight, self.nb1.bias, self.nb2.weight, self.nb2.bias]
         return {"decoder": dec, "geometry": [self.geo_feats], "color": color}
+
+    def apply_exposure(self, exposure_feat: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
+        """rgb [N, 3] through the exposure MLP of the latent
+        ``exposure_feat`` [exposure_dim]: rgb @ R + t, with (R [3, 3], t [3])
+        from a Softplus(beta 100) hidden layer."""
+        h = F.softplus(100.0 * (exposure_feat @ self.exposure_w1 + self.exposure_b1)) / 100.0
+        aff = h @ self.exposure_w2 + self.exposure_b2
+        return rgb @ aff[:9].reshape(3, 3) + aff[9:]
 
     def max_query_radius(self) -> float:
         c = self.config
@@ -175,10 +193,11 @@ class ConvOnet2(Model):
         feat = torch.sum(nf * w[..., None], 1)
         return feat, n_valid >= c.pointcloud_min_nn_num
 
-    def query_raw(self, maps, pts: torch.Tensor, stage: str, is_tracker: bool, r_query: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def query_raw(self, maps, pts: torch.Tensor, stage: str, is_tracker: bool, r_query: torch.Tensor,
+                  exposure_feat: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """[N, 3] -> (raw [N, 4] (rgb, occ), point has neighbours [N]). One
-        kNN serves both features."""
+        kNN serves both features. The colours pass through the exposure MLP
+        where the model has one and ``exposure_feat`` is given."""
         c = self.config
         nn_out = knn_query(maps, pts.detach(), k=c.pointcloud_nn_num, with_pos=True)
         geo, col = self.geo_feats, self.col_feats
@@ -190,15 +209,19 @@ class ConvOnet2(Model):
         if stage == "color":
             col_feat, _ = self.interp_features(col, pts, nn_out, is_tracker, r_query, color=True)
             rgb = self.col_decoder(pts, col_feat)[:, :3]
+            if exposure_feat is not None and self.has_exposure:
+                rgb = self.apply_exposure(exposure_feat, rgb)
         else:
             rgb = torch.zeros((pts.shape[0], 3), dtype=pts.dtype, device=pts.device)
         return torch.cat([rgb, occ[:, None]], -1), has_nn
 
     def render_rays(self, maps, rays_o: torch.Tensor, rays_d: torch.Tensor, target_d: torch.Tensor,
-                    stage: str, r_query: torch.Tensor, is_tracker: bool = False) -> Dict[str, torch.Tensor]:
+                    stage: str, r_query: torch.Tensor, is_tracker: bool = False,
+                    exposure_feat: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Surface samples around the measured depth; ``r_query`` [N] is the
-        per-ray dynamic query radius. Rays without depth sample [0.1, 1] x
-        far, far a statistic of the batch's depths."""
+        per-ray dynamic query radius, ``exposure_feat`` the frame's exposure
+        latent, if any. Rays without depth sample [0.1, 1] x far, far a
+        statistic of the batch's depths."""
         c = self.config
         n = rays_o.shape[0]
         ns = c.rendering_n_surface
@@ -211,7 +234,7 @@ class ConvOnet2(Model):
         z_vals = torch.where(gt > 0, z_pos, z_zero)
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
         rq = r_query[:, None].expand(n, ns).reshape(-1)
-        raw, point_mask = self.query_raw(maps, pts.reshape(-1, 3), stage, is_tracker, rq)
+        raw, point_mask = self.query_raw(maps, pts.reshape(-1, 3), stage, is_tracker, rq, exposure_feat)
         raw = raw.reshape(n, ns, 4)
         point_mask = point_mask.reshape(n, ns)
         alpha = torch.sigmoid(c.rendering_sigmoid_coef_mapper * raw[..., 3])
@@ -226,11 +249,12 @@ class ConvOnet2(Model):
         return {"rgb": rgb_map, "depth": depth, "uncertainty": unc, "valid_ray_mask": point_mask.any(-1)}
 
     def get_loss(self, maps, rays_o: torch.Tensor, rays_d: torch.Tensor, target_s: torch.Tensor,
-                 target_d: torch.Tensor, is_mapping: bool, stage: str, r_query: torch.Tensor
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 target_d: torch.Tensor, is_mapping: bool, stage: str, r_query: torch.Tensor,
+                 exposure_feat: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """L1 sums: (loss, render outputs)."""
         c = self.config
-        out = self.render_rays(maps, rays_o, rays_d, target_d, stage, r_query, is_tracker=not is_mapping)
+        out = self.render_rays(maps, rays_o, rays_d, target_d, stage, r_query, is_tracker=not is_mapping,
+                               exposure_feat=exposure_feat)
         td = target_d[:, 0]
         depth = out["depth"]
         if not is_mapping:

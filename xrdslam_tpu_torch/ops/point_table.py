@@ -10,7 +10,10 @@ int32 bitcast to float32)]`` and padded to a multiple of 1024 floats.
 ``PointMap`` is the host store, a copy of the reference's (numpy; the
 insertion runs on the host, as the reference's FAISS index mutation does).
 ``device_state(device)`` uploads the hash keys and rows; the rows keep their
-bits, so the member ids survive as the denormal floats they are.
+bits, so the member ids survive as the denormal floats they are. After an
+insertion, ``upload(maps)`` writes the rows it changed into those device
+tensors in place, so that a CUDA graph that captured them reads the new
+map.
 ``knn_query`` probes the hash on the device, gathers one union row per
 query with ``ops.row_gather`` (K7, the CUDA kernel on the card), and takes
 the k nearest candidates: distances squared, ties to the lower candidate
@@ -57,6 +60,7 @@ class PointMap:
         width = -(-(self._o_mem + per_cell) // 1024) * 1024
         self.cell_data = np.zeros((hash_cap, width), np.float32)
         self.overflowed = False
+        self._dirty = set()  # rows changed since the last device_state or upload
 
     # ------------------------------------------------------------------
     def _hash(self, keys: np.ndarray) -> np.ndarray:
@@ -108,6 +112,7 @@ class PointMap:
         order = np.argsort(slots, kind="stable")
         ss, ps = slots[order], pidx[order]
         uniq_s, first, counts = np.unique(ss, return_index=True, return_counts=True)
+        self._dirty.update(uniq_s.tolist())
         K = self.per_cell
         for s, f, c in zip(uniq_s, first, counts):
             c0 = int(self.cell_count[s])
@@ -148,6 +153,7 @@ class PointMap:
         size as a 0-dim tensor there (a true fp32 division, as the
         reference's), the point count and the row layout."""
         device = torch.device(device)
+        self._dirty.clear()
         return {
             "cell_keys": torch.tensor(self.cell_keys, device=device),
             "cell_data": torch.tensor(self.cell_data, device=device),
@@ -155,6 +161,23 @@ class PointMap:
             "cell_size": torch.tensor(self.cell_size, dtype=torch.float32, device=device),
             "per_cell": self.per_cell,
         }
+
+    def upload(self, maps: Dict[str, object]) -> int:
+        """Write the hash keys and rows changed since the last
+        ``device_state`` or ``upload`` into the device tensors of ``maps``
+        (made by ``device_state``) in place, and its point count; the
+        tensors keep their addresses and, row for row, ``device_state``'s
+        bits. Returns the number of rows written."""
+        n = len(self._dirty)
+        if n:
+            rows = np.fromiter(sorted(self._dirty), np.int64, n)
+            dev = maps["cell_data"].device
+            idx = torch.from_numpy(rows).to(dev)
+            maps["cell_keys"].index_copy_(0, idx, torch.from_numpy(self.cell_keys[rows]).to(dev))
+            maps["cell_data"].index_copy_(0, idx, torch.from_numpy(self.cell_data[rows]).to(dev))
+            self._dirty.clear()
+        maps["n_points"] = self.n_points
+        return n
 
 
 def hash_probe(maps: Dict[str, object], pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

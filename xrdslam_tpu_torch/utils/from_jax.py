@@ -132,6 +132,12 @@ def pointslam_params_from_jax(np_tree: Dict[str, Any], model: ConvOnet2,
     decoders = {**(frozen or {}), **np_tree["decoder"]}
     load_tree_into_decoder(model.geo_decoder, decoders["geo"], "decoder.geo")
     load_tree_into_decoder(model.col_decoder, decoders["col"], "decoder.col")
+    if ("exposure" in np_tree) != model.has_exposure:
+        raise ValueError(f"exposure: the reference's tree {'has' if 'exposure' in np_tree else 'lacks'} the exposure "
+                         f"MLP, the model {'has' if model.has_exposure else 'lacks'} it")
+    if model.has_exposure:
+        for k in ("w1", "b1", "w2", "b2"):
+            _copy(getattr(model, f"exposure_{k}"), np_tree["exposure"][k], f"exposure.{k}")
     return model
 
 
