@@ -45,14 +45,21 @@
    tables' gradient, launches equal to the schedule's); Co-SLAM at the
    accuracy protocol (``bench_accuracy.py``'s configuration: the
    tri-plane, 200 frames; gated on ATE, K4 launches equal to the
-   schedule's), then its protocol row: PSNR, SSIM and depth-L1 of
-   ``render_img`` every 50 frames, and accuracy, completion and completion
-   ratio of its culled mesh against the scene's exact one, printed as one
-   ``[protocol]`` line beside the JAX package's row of
-   ``BENCH_ACCURACY.json`` and the verdicts of ``bench_accuracy.py``'s
-   gates (read from the two files as data; only the ATE gate and finite
-   values fail the smoke). These three runs go through the pipeline's
-   group path (each 5-frame group from frame 10 on is one CUDA graph
+   schedule's), with the pipeline's post-run sweep at ``render_freq`` 50
+   (every other run has it off), then its protocol row from the sweep's
+   files: PSNR, SSIM and depth-L1 of ``eval_2d.json`` (``render_img`` every
+   50 frames), and accuracy, completion and completion ratio of
+   ``mesh/final_mesh_rec.ply`` (the final mesh culled by the estimated
+   poses) against the scene's exact one, printed as one ``[protocol]`` line
+   beside the JAX package's row of ``BENCH_ACCURACY.json`` and the verdicts
+   of ``bench_accuracy.py``'s gates (read from the two files as data; only
+   the ATE gate and finite values fail the smoke); then ``ds-eval`` of the
+   port on that output dir (``scripts/eval.py``: ATE, the 3D metrics, the
+   Tanks and Temples P/R/F at 1 cm and the unseen-view depth-L1 at 20
+   views rendered by the tile mesh rasterizer on the card, the culled exact
+   mesh as the ground truth), one ``[ds-eval]`` line with each metric and
+   its seconds, failing on a non-finite one. These three runs go
+   through the pipeline's group path (each 5-frame group from frame 10 on is one CUDA graph
    replay, a key's first group its warm-up and capture; each run must
    have taken it), and each prints a ``[groups]`` line (the groups, the
    frames each path took, the captures by key with their seconds, the
@@ -273,6 +280,15 @@ group's s/frame) and ``[mesh]`` with the mesh's accuracy, completion and
 completion ratio against the scene's exact mesh, reported (no result
 line).
 
+    python3 chip_smoke.py --ds-eval
+
+runs Co-SLAM's protocol run with its sweep as the default run does, holds
+the ``[protocol]`` row from the sweep's files to the values of the hand
+loop it replaced (``render_img`` every 50 frames from the generator state
+the sweep started from, ``get_mesh``, the evaluation cull, the same
+metric functions: equal), then ``ds-eval`` at the reference's 1,000 unseen
+views (``[ds-eval]``, with the raster's seconds a view; no result line).
+
     python3 chip_smoke.py --per-frame
 
 runs the per-frame A/B runs that the default run starts in its second
@@ -318,6 +334,7 @@ COSLAM_FRAMES = 60
 COSLAM_PER_FRAME_FRAMES = 20
 PROTOCOL_FRAMES = 200  # bench_accuracy.py's sequence
 PROTOCOL_RENDER_FREQ = 50  # bench_accuracy.py's default render_freq
+DS_EVAL_VIEWS = 20  # the default run's unseen views for ds-eval (--ds-eval: the reference's 1,000)
 SPLATAM_FRAMES = 20
 POINTSLAM_FRAMES = 12  # a first mapping of 1,500 iterations, then 11 x (40 tracking + 300 mapping)
 # NICE-SLAM at the accuracy protocol's settings: frames 4-57 go through 27
@@ -2192,12 +2209,15 @@ def check_voxel_insertion(pipeline) -> None:
 # ---------------------------------------------------------------------------
 
 def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_cm=None, tag: str = "", config=None,
-             frozen_share: float = None, correct_scale: bool = False):
+             frozen_share: float = None, correct_scale: bool = False, sweep: bool = False):
     """One algorithm through the port's runner on synthetic ``data`` with
     the registry's settings and ``overrides`` ({dotted config path under
     ``xrdslam``: value}); returns (pipeline, results). The launch counts
     are zeroed just before the run and read just after; each of
-    ``counters`` must have moved. Poses must be finite; where
+    ``counters`` must have moved. The pipeline's post-run sweep
+    (``eval_2d.json``, the final meshes) runs only with ``sweep``, every
+    ``PROTOCOL_RENDER_FREQ`` frames; its seconds are ``sweep_s`` and the
+    render generator's state before it ``pipeline.sweep_rng``. Poses must be finite; where
     ``ate_limit_cm`` is given, the ATE must be at most that and at most
     ``frozen_share`` (by default ``FROZEN_ATE_SHARE``) of the ATE of a
     camera frozen at frame 0. ``config`` replaces the registry's entry.
@@ -2216,6 +2236,8 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     cfg.data, cfg.data_type = data, "synthetic"
     cfg.out_dir = os.path.join(ROOT, "build", f"chip_smoke_{name}")
     cfg.xrdslam.device = "cuda"
+    cfg.xrdslam.tracker.save_re_render_result = sweep
+    cfg.xrdslam.tracker.render_freq = PROTOCOL_RENDER_FREQ
     for path, value in (overrides or {}).items():
         *parents, leaf = path.split(".")
         node = cfg.xrdslam
@@ -2226,6 +2248,19 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     runner = cfg.setup()
     pipeline = runner.setup()
     n_frames = len(pipeline.dataset)
+    sweep_s = []
+    if sweep:
+        shipped_sweep = pipeline.save_re_render_frames
+
+        def timed_sweep():
+            generator = getattr(pipeline.algorithm, "generator", None)
+            pipeline.sweep_rng = None if generator is None else generator.get_state()
+            t = time.perf_counter()
+            shipped_sweep()
+            torch.cuda.synchronize()
+            sweep_s.append(time.perf_counter() - t)
+
+        pipeline.save_re_render_frames = timed_sweep
     t0 = time.time()
     pipeline.dataset.prerender()
     torch.cuda.synchronize()
@@ -2249,7 +2284,7 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     frozen_cm = evaluate_ate(algo.gt_c2w_list, [algo.gt_c2w_list[0]] * n_frames)["rmse"] * 100.0
     res = {"run": name, "data": data, "overrides": overrides or {}, "frames": n_frames, "wall_s": wall,
            "ate_rmse_cm": ate_cm, "ate_sim3": correct_scale, "frozen_ate_cm": frozen_cm,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "sweep_s": sweep_s[0] if sweep_s else None,
            "launches": launches, "keyframes": len(algo.keyframe_fids),
            # translation error of each frame before alignment (cm)
            "frame_err_cm": [round(float(np.linalg.norm(e[:3, 3] - g[:3, 3])) * 100, 3)
@@ -2448,19 +2483,56 @@ def culled_gt_mesh(ds):
 
 
 def protocol_row(pipeline, ate_cm: float, algorithm: str = "co-slam") -> dict:
-    """``bench_accuracy.run_algo``'s row of a finished run of ``algorithm``: PSNR,
-    SSIM and depth-L1 of ``render_img`` at the estimated pose every
-    ``PROTOCOL_RENDER_FREQ`` frames; accuracy, completion and completion
-    ratio of the culled mesh against the culled exact mesh. Prints the
+    """``bench_accuracy.run_algo``'s row of a finished run of ``algorithm``
+    (run with ``sweep``), from the pipeline's own outputs: PSNR, SSIM and
+    depth-L1 of ``eval_2d.json`` (the sweep renders at the estimated pose
+    every ``PROTOCOL_RENDER_FREQ`` frames), and accuracy, completion and
+    completion ratio of ``mesh/final_mesh_rec.ply`` (the final mesh, culled
+    by the estimated poses) against the culled exact mesh. Prints the
     ``[protocol]`` line and raises if a value is not finite."""
-    from xrdslam_tpu_torch.common import metrics as M
     from xrdslam_tpu_torch.ops import marching_tets
+    from xrdslam_tpu_torch.utils.eval_recon import calc_3d_metric
+    from xrdslam_tpu_torch.utils.io import read_ply
+
+    ds = pipeline.dataset
+    with open(os.path.join(pipeline.out_dir, "eval_2d.json")) as f:
+        e2d = json.load(f)
+    t0 = time.perf_counter()
+    rec = read_ply(os.path.join(pipeline.out_dir, "mesh", "final_mesh_rec.ply"))
+    m3 = calc_3d_metric(rec, culled_gt_mesh(ds))
+    print(f"[protocol] from the sweep's files ({e2d['frames']} frames; the culled mesh {len(rec.vertices)} vertices, "
+          f"{len(rec.faces)} faces, marching tetrahedra: {marching_tets.backend()} path): 3D metrics "
+          f"{time.perf_counter() - t0:.3f} s")
+    row = {"ate_cm": ate_cm, "psnr": e2d["psnr"], "ssim": e2d["ssim"], "depth_l1_cm": e2d["depth_l1"],
+           "accuracy_cm": m3["accuracy_cm"], "completion_cm": m3["completion_cm"],
+           "completion_ratio_pct": m3["completion_ratio_pct"], "precision_pct": m3["precision_pct"],
+           "recall_pct": m3["recall_pct"], "f1_pct": m3["f1_pct"]}
+    jax_row, gates = reference_row(algorithm)
+    verdicts = {k: bool(row[k] <= thr) if op == "<=" else bool(row[k] >= thr) for k, (op, thr) in gates.items()}
+    print("[protocol] " + json.dumps({"algorithm": algorithm, "port": row, "jax": {k: jax_row.get(k) for k in row},
+                                      "gates": {k: list(v) for k, v in gates.items()}, "port_passes": verdicts,
+                                      "frames": len(ds), "render_freq": PROTOCOL_RENDER_FREQ,
+                                      "sweep": {k: e2d.get(k) for k in ("ms_ssim", "lpips", "debug_images")}}))
+    bad = [k for k, v in row.items() if not np.isfinite(v)]
+    if bad:
+        raise RuntimeError(f"{algorithm}@protocol: non-finite {bad}")
+    return row
+
+
+def protocol_hand_row(pipeline) -> dict:
+    """The row's render and mesh values computed by hand from the final
+    state, as ``protocol_row`` did before the sweep was ported: ``render_img``
+    every ``PROTOCOL_RENDER_FREQ`` frames from the generator state the sweep
+    started from (the renders jitter their samples with it), ``get_mesh``,
+    the evaluation cull and the 3D metrics."""
+    from xrdslam_tpu_torch.common import metrics as M
     from xrdslam_tpu_torch.utils.eval_recon import calc_3d_metric
     from xrdslam_tpu_torch.utils.mesh_ops import cull_mesh
 
     algo, ds = pipeline.algorithm, pipeline.dataset
     est = algo.estimate_c2w_list
-    t0 = time.perf_counter()
+    if pipeline.sweep_rng is not None:
+        algo.generator.set_state(pipeline.sweep_rng)
     sums = {"psnr": 0.0, "ssim": 0.0, "depth_l1": 0.0}
     frames = list(range(0, len(ds), PROTOCOL_RENDER_FREQ))
     for i in frames:
@@ -2470,33 +2542,56 @@ def protocol_row(pipeline, ate_cm: float, algorithm: str = "co-slam") -> dict:
         sums["psnr"] += M.psnr(color, gt_rgb, mask)
         sums["ssim"] += M.ssim(color, gt_rgb)
         sums["depth_l1"] += M.depth_l1(depth, gt_depth, mask) * 100.0
-    t_render = time.perf_counter() - t0
+    m3 = calc_3d_metric(cull_mesh(ds, algo.get_mesh(), estimate_c2w_list=est, eval_rec=True), culled_gt_mesh(ds))
+    return {"psnr": sums["psnr"] / len(frames), "ssim": sums["ssim"] / len(frames),
+            "depth_l1_cm": sums["depth_l1"] / len(frames),
+            **{k: m3[k] for k in ("accuracy_cm", "completion_cm", "completion_ratio_pct", "precision_pct",
+                                  "recall_pct", "f1_pct")}}
+
+
+DS_EVAL_KEYS = ("ate_rmse_cm", "accuracy_cm", "completion_cm", "completion_ratio_pct", "precision_pct",
+                "recall_pct", "f1_pct", "tnt_precision_pct", "tnt_recall_pct", "tnt_fscore_pct", "unseen_depth_l1_cm")
+
+
+def ds_eval_run(pipeline, n_imgs: int, name: str = "co-slam@protocol") -> dict:
+    """``ds-eval`` of the port (``scripts/eval.py``) on a finished sweep
+    run's outputs, with the culled exact mesh written as the ground-truth
+    PLY and ``n_imgs`` unseen views rendered on the card. Prints the
+    ``[ds-eval]`` line (each metric, each stage's seconds, the raster's
+    seconds a view) and raises on a non-finite metric."""
+    from xrdslam_tpu_torch.scripts.eval import main as ds_eval
+
+    gt_path = os.path.join(pipeline.out_dir, "gt_culled.ply")
+    culled_gt_mesh(pipeline.dataset).export(gt_path)
     t0 = time.perf_counter()
-    mesh = algo.get_mesh()
-    if mesh is None:
-        raise RuntimeError(f"{algorithm}@protocol: get_mesh found no surface")
-    t_mesh = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rec = cull_mesh(ds, mesh, estimate_c2w_list=est, eval_rec=True)
-    gt = culled_gt_mesh(ds)
-    m3 = calc_3d_metric(rec, gt)
-    t_metric = time.perf_counter() - t0
-    print(f"[protocol] render sweep ({len(frames)} frames) {t_render:.3f} s; get_mesh {t_mesh:.3f} s "
-          f"(marching tetrahedra: {marching_tets.backend()} path; {len(mesh.vertices)} vertices, "
-          f"{len(mesh.faces)} faces); culls and 3D metrics {t_metric:.3f} s")
-    row = {"ate_cm": ate_cm, "psnr": sums["psnr"] / len(frames), "ssim": sums["ssim"] / len(frames),
-           "depth_l1_cm": sums["depth_l1"] / len(frames), "accuracy_cm": m3["accuracy_cm"],
-           "completion_cm": m3["completion_cm"], "completion_ratio_pct": m3["completion_ratio_pct"],
-           "precision_pct": m3["precision_pct"], "recall_pct": m3["recall_pct"], "f1_pct": m3["f1_pct"]}
-    jax_row, gates = reference_row(algorithm)
-    verdicts = {k: bool(row[k] <= thr) if op == "<=" else bool(row[k] >= thr) for k, (op, thr) in gates.items()}
-    print("[protocol] " + json.dumps({"algorithm": algorithm, "port": row, "jax": {k: jax_row.get(k) for k in row},
-                                      "gates": {k: list(v) for k, v in gates.items()}, "port_passes": verdicts,
-                                      "frames": len(ds), "render_freq": PROTOCOL_RENDER_FREQ}))
-    bad = [k for k, v in row.items() if not np.isfinite(v)]
+    res = ds_eval(["--output", pipeline.out_dir, "--gt-mesh", gt_path, "--n-imgs-2d", str(n_imgs), "--device", "cuda"])
+    rep = {"run": name, "views": n_imgs, **{k: res[k] for k in DS_EVAL_KEYS}, "seconds": res["seconds"],
+           "total_s": time.perf_counter() - t0}
+    print(f"[ds-eval] {json.dumps(rep)}")
+    bad = [k for k in DS_EVAL_KEYS if not np.isfinite(res[k])]
     if bad:
-        raise RuntimeError(f"{algorithm}@protocol: non-finite {bad}")
-    return row
+        raise RuntimeError(f"{name}: ds-eval gave non-finite {bad}")
+    return rep
+
+
+def ds_eval_protocol() -> None:
+    """``--ds-eval``: Co-SLAM's protocol run with its sweep; the
+    ``[protocol]`` row from the sweep's files held to the hand loop's values
+    (the same frames, generator state, metric functions and cull), then
+    ``ds-eval`` at the reference's 1,000 unseen views."""
+    office = f"height={HEIGHT},width={WIDTH},scene=office"
+    pipeline, res = run_slam("co-slam", f"n_frames={PROTOCOL_FRAMES},{office}", ("scatter_add",), tag="@protocol",
+                             config=protocol_config(office_bounds(office)), sweep=True)
+    stamp("co-slam@protocol run with its sweep")
+    row = protocol_row(pipeline, res["ate_rmse_cm"])
+    hand = protocol_hand_row(pipeline)
+    diff = {k: abs(row[k] - v) for k, v in hand.items()}
+    print(f"[protocol] the hand loop's values: {json.dumps(hand)}; |sweep - hand| {json.dumps(diff)}")
+    if max(diff.values()) > 0:
+        raise RuntimeError(f"co-slam@protocol: the sweep's row differs from the hand loop's: {diff}")
+    stamp("co-slam protocol row and the hand loop")
+    ds_eval_run(pipeline, 1000)
+    stamp("ds-eval at 1,000 views")
 
 
 def profile(name: str, phases) -> None:
@@ -2914,7 +3009,7 @@ def repeat_runs(pointslam: int, protocol: int, niceslam_seeds: int = 0, voxfusio
     bounds = office_bounds(office)
     for i in range(protocol):
         pipeline, res = run_slam("co-slam", f"n_frames={PROTOCOL_FRAMES},{office}", ("scatter_add",),
-                                 tag=f"@protocol#{i}", config=protocol_config(bounds))
+                                 tag=f"@protocol#{i}", config=protocol_config(bounds), sweep=True)
         row = protocol_row(pipeline, res["ate_rmse_cm"])
         digest = trajectory_digest(pipeline)
         seen.setdefault("co-slam@protocol", []).append((json.dumps(row), digest))
@@ -3113,7 +3208,7 @@ def niceslam_protocol() -> None:
     ``[protocol]`` row beside the JAX package's; reported, not gated."""
     office = f"height={HEIGHT},width={WIDTH},scene=office"
     pipeline, res = run_slam("nice-slam", f"n_frames={PROTOCOL_FRAMES},{office}", ("scatter_add",),
-                             tag="@protocol200", config=niceslam_protocol_config(office_bounds(office)))
+                             tag="@protocol200", config=niceslam_protocol_config(office_bounds(office)), sweep=True)
     protocol_row(pipeline, res["ate_rmse_cm"], "nice-slam")
     stamp("nice-slam protocol row")
 
@@ -4073,6 +4168,9 @@ def main(argv) -> None:
     if argv[:1] == ["--dpvo-train-seeds"] and len(argv) == 2:
         dpvo_train_seeds(int(argv[1]))
         return
+    if argv == ["--ds-eval"]:
+        ds_eval_protocol()
+        return
     if argv == ["--pointslam-groups"]:
         pointslam_groups_run(f"height={HEIGHT},width={WIDTH},scene=office")
         return
@@ -4174,7 +4272,8 @@ def main(argv) -> None:
     for tag, data, config, overrides in coslam_runs:
         if tag == "@protocol":
             per_frame = start_child(["--per-frame"])  # NICE-SLAM's and Vox-Fusion's per-frame A/Bs
-        pipeline, res = run_slam("co-slam", data, ("scatter_add",), overrides, ATE_LIMIT_CM, tag=tag, config=config)
+        pipeline, res = run_slam("co-slam", data, ("scatter_add",), overrides, ATE_LIMIT_CM, tag=tag, config=config,
+                                 sweep=tag == "@protocol")
         model = pipeline.algorithm.model
         encoding = "triplane" if model.tp_spec is not None else "packed"
         want = coslam_scatter_schedule(config or algorithm_configs["co-slam"], res["frames"], encoding)
@@ -4184,9 +4283,10 @@ def main(argv) -> None:
             raise RuntimeError(f"co-slam{tag}: scatter_add launches {res['launches']['scatter_add']} != {want}")
         launches[f"scatter_add[co-slam{tag}]"] = res["launches"]["scatter_add"]
         steady[f"co-slam{tag}"] = [res["steady_s_per_frame"], res["groups"]["group_frame_s_median"]]
-        if tag == "@protocol":  # before the profile's calls change the map
+        if tag == "@protocol":
             protocol_row(pipeline, res["ate_rmse_cm"])
-            stamp("co-slam protocol row")
+            ds_eval_run(pipeline, DS_EVAL_VIEWS)
+            stamp("co-slam protocol row and ds-eval")
         check_group_replay(pipeline, f"co-slam{tag}", exact=False)
         profile_coslam(pipeline, f"co-slam{tag}")
         stamp(f"co-slam{tag} run and profile")

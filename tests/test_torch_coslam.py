@@ -325,6 +325,7 @@ def test_tiny_run_through_the_cli(tmp_path):
     runner = main([
         "co-slam", "--data-type", "synthetic", "--data", f"n_frames={n},height=40,width=60,scene=simple",
         "--out-dir", str(tmp_path), "--xrdslam.device", "cpu",
+        "--xrdslam.tracker.save-re-render-result", "false",  # the sweep: tests/test_torch_sweep.py
         "--xrdslam.algorithm.mapping-bound", "[[-2.2,2.2],[-2.2,2.2],[-2.2,2.2]]",
         "--xrdslam.algorithm.mapping-first-n-iters", "30",
         "--xrdslam.algorithm.tracking-sample", "128", "--xrdslam.algorithm.mapping-sample", "256",

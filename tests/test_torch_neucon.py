@@ -232,11 +232,14 @@ def test_fragment_step_matches_jax(tree, fragment):
     f64 = {k: fragment[k] for k in ("imgs", "projs", "origin")}
     with jax.enable_x64(True):
         jm = _jax_model(tree, np.float64)
+        # dispatched, not awaited: JAX computes while the port does
         want = jax.jit(jm.fragment_step)(jm.params, *(np.asarray(f64[k], np.float64) for k in ("imgs", "projs", "origin")),
                                          [np.asarray(h, np.float64) for h in fragment["hiddens"]], np.eye(4))
-        want = jax.tree_util.tree_map(np.asarray, want)
-    _hold_fragment(_port_fragment(_port_model(tree, torch.float64), fragment, torch.float64), want, 1e-9)
-    _hold_fragment(_port_fragment(_port_model(tree, torch.float32), fragment, torch.float32), want, 1e-2)
+    got64 = _port_fragment(_port_model(tree, torch.float64), fragment, torch.float64)
+    got32 = _port_fragment(_port_model(tree, torch.float32), fragment, torch.float32)
+    want = jax.tree_util.tree_map(np.asarray, want)
+    _hold_fragment(got64, want, 1e-9)
+    _hold_fragment(got32, want, 1e-2)
 
 
 def test_loss_and_gradients_match_jax(tree, fragment):
@@ -247,13 +250,14 @@ def test_loss_and_gradients_match_jax(tree, fragment):
     with jax.enable_x64(True):
         jm = _jax_model(tree, np.float64)
         jargs = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), args)
+        # dispatched, not awaited: JAX computes while the port does
         jloss, jgrad = jax.jit(jax.value_and_grad(jm.loss))(jm.params, *jargs)
-        jloss, jgrad = float(jloss), [np.asarray(g) for g in jax.tree_util.tree_leaves(jgrad)]
     pm = _port_model(tree, torch.float64)
     targs = [torch.tensor(np.asarray(a, np.float64)) for a in args[:3]]
     targs += [[torch.tensor(np.asarray(h, np.float64)) for h in f["hiddens"]], None]
     targs += [[torch.tensor(np.asarray(t, np.float64)) for t in f[k]] for k in ("tsdf_t", "occ_t")]
     loss, grads = pm.value_and_grad(pm.params, *targs)
+    jloss, jgrad = float(jloss), [np.asarray(g) for g in jax.tree_util.tree_leaves(jgrad)]
     assert abs(float(loss) - jloss) <= 1e-10 * abs(jloss), (float(loss), jloss)
     paths = [p for p, _ in T.leaves(pm.params)]
     assert len(paths) == len(jgrad) == len(grads)

@@ -571,6 +571,7 @@ def test_tiny_run_through_the_cli(tmp_path):
     runner = main([
         "nice-slam", "--data-type", "synthetic", "--data", f"n_frames={n},height=48,width=64",
         "--out-dir", str(tmp_path), "--xrdslam.device", "cpu",
+        "--xrdslam.tracker.save-re-render-result", "false",  # the sweep: tests/test_torch_sweep.py
         "--xrdslam.tracker.map-every", "2", "--xrdslam.mapper.keyframe-every", "2",
         a + "tracking-n-iters", "6", a + "mapping-n-iters", "10", a + "mapping-first-n-iters", "30",
         a + "mapping-window-size", "3", a + "tracking-sample", "160", a + "mapping-sample", "300",

@@ -542,6 +542,7 @@ def test_smoke_settings_run_through_the_cli(tmp_path):
     runner = main([
         "point-slam", "--data-type", "synthetic", "--data", f"n_frames={n},height=48,width=64",
         "--out-dir", str(tmp_path), "--xrdslam.device", "cpu",
+        "--xrdslam.tracker.save-re-render-result", "false",  # the sweep: tests/test_torch_sweep.py
         "--xrdslam.tracker.map-every", "2", "--xrdslam.tracker.lazy-start", "-1",
         "--xrdslam.mapper.keyframe-every", "2",
         a + "tracking-n-iters", "8", a + "mapping-n-iters", "20", a + "mapping-first-n-iters", "40",

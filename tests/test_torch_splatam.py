@@ -441,6 +441,7 @@ def test_port_registry_run_drifts_as_the_jax_run_does(jax_registry_run, tmp_path
     cfg.device = "cpu"
     cfg.algorithm.model.max_gaussians = run.cut["max_gaussians"]
     cfg.algorithm.mapping_window_size = run.cut["mapping_window_size"]
+    cfg.tracker.save_re_render_result = False  # as the JAX run's
     pipe = cfg.setup(dataset=_first_frames(run.dataset, n, cam), out_dir=str(tmp_path), verbose=False)
     algo = pipe.algorithm
     do_mapping = algo.do_mapping

@@ -207,7 +207,9 @@ def test_tiny_run_through_the_cli(tmp_path):
     from xrdslam_tpu_torch.scripts.run import main
 
     n = 5
-    runner = main(_cli_args(tmp_path, n) + ["--xrdslam.device", "cpu"])
+    # no post-run sweep: tests/test_torch_sweep.py runs it
+    runner = main(_cli_args(tmp_path, n) + ["--xrdslam.device", "cpu", "--xrdslam.tracker.save-re-render-result",
+                                            "false"])
     with open(tmp_path / "eval.tar", "rb") as f:
         data = pickle.load(f)
     est = data["estimate_c2w_list"]

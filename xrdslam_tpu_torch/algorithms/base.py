@@ -4,7 +4,9 @@ Counterpart of ``xrdslam_tpu/algorithms/base.py`` without the multi-device
 helpers: the finite-gradient guard, the tracking lr schedule, the static
 mapping window (``window_slot_frame``, ``pad_window``, and on the device
 ``window_arrays``), the group steps' constant-velocity prediction
-(``predict_q``) and the host bookkeeping (pose lists, keyframe ids).
+(``predict_q``), the host bookkeeping (pose lists, keyframe ids) and the
+outputs' defaults for an algorithm without them (``render_img``,
+``get_mesh``, ``get_cloud``).
 """
 from __future__ import annotations
 
@@ -188,3 +190,17 @@ class Algorithm:
 
     def add_keyframe(self, cur_frame: Frame) -> None:
         raise NotImplementedError
+
+    # -- outputs (an algorithm without them keeps these) ------------------
+    def render_img(self, c2w: np.ndarray, gt_depth: Optional[np.ndarray] = None, idx: Optional[int] = None):
+        """(color [H, W, 3], depth [H, W]) at ``c2w``; (None, None) for an
+        algorithm that renders no image, which ends the post-run sweep."""
+        return None, None
+
+    def get_mesh(self):
+        """The reconstruction as a ``utils.io.Mesh``, or None."""
+        return None
+
+    def get_cloud(self, c2w_np: np.ndarray, gt_depth_np: Optional[np.ndarray]):
+        """(points, colours) of the map, or None."""
+        return None

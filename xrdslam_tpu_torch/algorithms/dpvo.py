@@ -466,9 +466,6 @@ class DPVO(Algorithm):
     def add_keyframe(self, cur_frame: Frame) -> None:
         pass
 
-    def render_img(self, c2w, gt_depth=None, idx=None):
-        return None, None
-
     def get_cloud(self, c2w_np=None, gt_depth_np=None):
         """The patch centres' world points and colours, without points
         behind the camera or beyond 10x the median depth."""
@@ -479,6 +476,3 @@ class DPVO(Algorithm):
         med = np.median(pos[:, 2])
         keep = (pos[:, 2] <= med * 10) & (pos[:, 2] > 0)
         return pos[keep], rgb[: len(pos)][keep]
-
-    def get_mesh(self):
-        return None

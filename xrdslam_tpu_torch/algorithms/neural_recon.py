@@ -294,6 +294,3 @@ class NeuralRecon(Algorithm):
 
     def add_keyframe(self, cur_frame: Frame) -> None:
         pass
-
-    def render_img(self, c2w, gt_depth=None, idx=None):
-        return None, None

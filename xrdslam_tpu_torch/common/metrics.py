@@ -1,8 +1,10 @@
-"""2D render metrics: PSNR, SSIM, MS-SSIM, depth-L1 (host NumPy).
+"""2D render metrics: PSNR, SSIM, MS-SSIM, depth-L1 (host NumPy) and LPIPS.
 
 Counterpart of ``xrdslam_tpu/common/metrics.py``. SSIM is the single-scale
 11x11 Gaussian-window form; MS-SSIM the 5-scale one with the standard
-weights.
+weights. LPIPS runs ``ops/lpips.py`` on its pretrained weights where they
+are present, and is NaN where they are not (the reference package's
+torchmetrics fallback downloads its weights, so it is not ported).
 """
 from __future__ import annotations
 
@@ -90,3 +92,25 @@ def depth_l1(pred: np.ndarray, target: np.ndarray, mask: Optional[np.ndarray] = 
         return float("nan")
     return float(np.abs(p - t)[mask].mean())
 
+
+
+LPIPS_UNAVAILABLE = ("the port's ops/lpips.py needs the converted AlexNet and LPIPS lin weights (alexnet.pth and "
+                     "lpips_alex.pth in the directory $XRDSLAM_LPIPS_WEIGHTS names); they are not present, so LPIPS "
+                     "is not measured")
+
+
+def lpips(pred: np.ndarray, target: np.ndarray, device="cpu") -> float:
+    """LPIPS(alex) of two [H, W, 3] images on ``device`` where the
+    pretrained weights load, else NaN."""
+    import torch
+
+    from ..ops.lpips import get_pretrained, lpips_apply, to_device
+
+    params = get_pretrained()
+    if params is None:
+        return float("nan")
+
+    def img(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device).clamp(0, 1)
+
+    return float(lpips_apply(to_device(params, device), img(pred), img(target)))

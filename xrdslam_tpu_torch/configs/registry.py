@@ -59,7 +59,7 @@ descriptions = {
 algorithm_configs["co-slam"] = RunnerConfig(
     algorithm_name="co-slam",
     xrdslam=SLAMPipelineConfig(
-        tracker=TrackerConfig(map_every=5),
+        tracker=TrackerConfig(map_every=5, render_freq=50),
         mapper=MapperConfig(keyframe_every=5),
         algorithm=CoSLAMConfig(
             rot_rep="axis_angle",
@@ -93,7 +93,7 @@ algorithm_configs["co-slam"] = RunnerConfig(
 algorithm_configs["nice-slam"] = RunnerConfig(
     algorithm_name="nice-slam",
     xrdslam=SLAMPipelineConfig(
-        tracker=TrackerConfig(map_every=5, use_relative_pose=False, save_debug_result=False),
+        tracker=TrackerConfig(map_every=5, render_freq=50, use_relative_pose=False, save_debug_result=False),
         mapper=MapperConfig(keyframe_every=50),
         algorithm=NiceSLAMConfig(
             coarse=True,
@@ -144,7 +144,7 @@ algorithm_configs["nice-slam"] = RunnerConfig(
 algorithm_configs["splaTAM"] = RunnerConfig(
     algorithm_name="splaTAM",
     xrdslam=SLAMPipelineConfig(
-        tracker=TrackerConfig(map_every=1, use_relative_pose=True, save_debug_result=False),
+        tracker=TrackerConfig(map_every=1, render_freq=50, use_relative_pose=True, save_debug_result=False),
         mapper=MapperConfig(keyframe_every=5),
         algorithm=SplaTAMConfig(
             rot_rep="quat",
@@ -169,7 +169,7 @@ algorithm_configs["splaTAM"] = RunnerConfig(
 algorithm_configs["point-slam"] = RunnerConfig(
     algorithm_name="point-slam",
     xrdslam=SLAMPipelineConfig(
-        tracker=TrackerConfig(map_every=5, lazy_start=20, use_relative_pose=False, save_debug_result=False),
+        tracker=TrackerConfig(map_every=5, lazy_start=20, render_freq=50, use_relative_pose=False, save_debug_result=False),
         mapper=MapperConfig(keyframe_every=20),
         algorithm=PointSLAMConfig(
             rot_rep="quat",
@@ -197,7 +197,7 @@ algorithm_configs["point-slam"] = RunnerConfig(
 algorithm_configs["vox-fusion"] = RunnerConfig(
     algorithm_name="vox-fusion",
     xrdslam=SLAMPipelineConfig(
-        tracker=TrackerConfig(map_every=1, use_relative_pose=True, save_debug_result=False, init_pose_offset=10),
+        tracker=TrackerConfig(map_every=1, render_freq=50, use_relative_pose=True, save_debug_result=False, init_pose_offset=10),
         mapper=MapperConfig(keyframe_every=50),
         algorithm=VoxFusionConfig(
             rot_rep="axis_angle",
@@ -223,7 +223,7 @@ algorithm_configs["vox-fusion"] = RunnerConfig(
 algorithm_configs["dpvo"] = RunnerConfig(
     algorithm_name="dpvo",
     xrdslam=SLAMPipelineConfig(
-        tracker=TrackerConfig(map_every=-1),
+        tracker=TrackerConfig(map_every=-1, render_freq=50),
         algorithm=DPVOConfig(
             mapping_window_size=32,
             patch_lifetime=13,
@@ -240,7 +240,7 @@ algorithm_configs["dpvo"] = RunnerConfig(
 algorithm_configs["neuralRecon"] = RunnerConfig(
     algorithm_name="neuralRecon",
     xrdslam=SLAMPipelineConfig(
-        tracker=TrackerConfig(map_every=1, use_relative_pose=False, save_debug_result=False),
+        tracker=TrackerConfig(map_every=1, render_freq=50, use_relative_pose=False, save_debug_result=False),
         algorithm=NeuralReconConfig(
             mapping_window_size=9,
             max_depth=3.5,

@@ -1,7 +1,8 @@
-"""Mesh IO without open3d or trimesh.
+"""Mesh and image IO without open3d or trimesh.
 
-Counterpart of ``xrdslam_tpu/utils/io.py``: a ``Mesh`` container and a
-minimal binary-PLY writer and reader.
+Counterpart of ``xrdslam_tpu/utils/io.py``: a ``Mesh`` container, a
+minimal binary-PLY writer and reader, and the debug images' writer and
+depth colour ramp.
 """
 from __future__ import annotations
 
@@ -74,3 +75,25 @@ def read_ply(path: str) -> Mesh:
         faces = frec["idx"].astype(np.int64).copy()
     return Mesh(verts, faces, colors)
 
+
+
+def save_image(path: str, img: np.ndarray) -> None:
+    """Save a float [0, 1] image, (H, W, 3) or (H, W), as png or jpg.
+    PIL is imported here, not with the module: a machine without it runs
+    everything else."""
+    from PIL import Image
+
+    Image.fromarray(np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8)).save(path)
+
+
+def colorize_depth(depth: np.ndarray, max_depth: Optional[float] = None) -> np.ndarray:
+    """A depth image on a turbo-like colour ramp in [0, 1]; no depth is black."""
+    d = np.asarray(depth, np.float64)
+    md = max_depth or max(float(d.max()), 1e-6)
+    t = np.clip(d / md, 0, 1)
+    r = np.clip(1.5 - np.abs(2.0 * t - 1.5), 0, 1)
+    g = np.clip(1.5 - np.abs(2.0 * t - 1.0), 0, 1)
+    b = np.clip(1.5 - np.abs(2.0 * t - 0.5), 0, 1)
+    out = np.stack([r, g, b], -1)
+    out[d <= 0] = 0
+    return out
