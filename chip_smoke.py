@@ -176,7 +176,22 @@
    10 cm and at most half that of a camera frozen at frame 0
    (``FROZEN_ATE_SHARE``). Every pose must be finite and every kernel of
    each main path launched (the launch counts are zeroed just before each
-   run and read just after).
+   run and read just after). After the exact-hash run,
+   ``co-slam@replica-resume`` and the file loaders: the office's first 60
+   frames written in Replica's layout (JPEG colour, 16-bit PNG depth at
+   ``png_depth_scale`` 6553.5, ``traj.txt``, ``devices.yaml``) and 3 in
+   CoFusion's (PNG colour, EXR depth by the port's ``write_exr``), read back
+   through ``get_dataset`` and held to the frames written (``[loader]``:
+   depth and poses exact, Replica's colour within the JPEG's error,
+   CoFusion's exact; with the PyYAML and PIL that read them); then the
+   registry's Co-SLAM from the Replica files, run whole in a second process
+   and, beside it, stopped at frame 30 (between two group replays) with
+   its checkpoint written, then resumed in a fresh process up to frame 59
+   (``--resume-segment`` below): the resumed trajectory must be the whole
+   run's bit for bit, K4's launches of the two segments must add up to the
+   whole run's and to the schedule's, and the ATE must pass the gate
+   (``[resume]``: digests, the largest pose difference, the checkpoint's
+   MiB and seconds to write and to read; ``[gate]``).
 5. Profiles one tracking and one mapping call of each run on a main path
    (of a Co-SLAM, SplaTAM, NICE-SLAM or Vox-Fusion run also one replay of
    its last group's graph)
@@ -288,6 +303,29 @@ loop it replaced (``render_img`` every 50 frames from the generator state
 the sweep started from, ``get_mesh``, the evaluation cull, the same
 metric functions: equal), then ``ds-eval`` at the reference's 1,000 unseen
 views (``[ds-eval]``, with the raster's seconds a view; no result line).
+
+    python3 chip_smoke.py --resume-all
+
+runs Co-SLAM's exact hash and the other six algorithms at the default
+run's configurations (NICE-SLAM at the protocol's settings, SplaTAM at K = 512, Point-SLAM
+through groups on 50 frames, Vox-Fusion's and DPVO's registry entries,
+NeuralRecon's registry entry on 200 frames) as ``co-slam@replica-resume``
+does: whole in a second process, stopped (on the group path after a
+replayed group where the algorithm has one; NeuralRecon inside its
+fragment and after it), resumed in a fresh process; one ``[resume]`` line
+a boundary (NeuralRecon's also the largest TSDF difference), raising
+unless the resumed run has the whole run's bits and the segments' kernel
+launches add up to the whole run's (no result line). The exact hash, whose
+K3 atomics leave two whole runs apart in their last bits, is not held to
+bits: its line adds a second whole run's largest pose difference beside
+the resumed run's.
+
+    python3 chip_smoke.py --resume-segment <dir>
+
+runs the segment of ``<dir>/spec.json`` in this process (the whole run,
+or the run resumed from ``<dir>/checkpoint.pkl``) and writes its record
+to ``<dir>/result.json`` and its poses beside it: the second and fresh
+processes of the two above.
 
     python3 chip_smoke.py --per-frame
 
@@ -2208,6 +2246,15 @@ def check_voxel_insertion(pipeline) -> None:
 # the main paths
 # ---------------------------------------------------------------------------
 
+def set_overrides(cfg, overrides) -> None:
+    """Set ``overrides`` ({dotted config path under ``xrdslam``: value}) on
+    the runner's config ``cfg``, by the CLI's own setter."""
+    from xrdslam_tpu_torch.configs.cli import _set_dotted
+
+    for path, value in (overrides or {}).items():
+        _set_dotted(cfg.xrdslam, path, value)
+
+
 def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_cm=None, tag: str = "", config=None,
              frozen_share: float = None, correct_scale: bool = False, sweep: bool = False):
     """One algorithm through the port's runner on synthetic ``data`` with
@@ -2238,12 +2285,7 @@ def run_slam(algorithm: str, data: str, counters=(), overrides=None, ate_limit_c
     cfg.xrdslam.device = "cuda"
     cfg.xrdslam.tracker.save_re_render_result = sweep
     cfg.xrdslam.tracker.render_freq = PROTOCOL_RENDER_FREQ
-    for path, value in (overrides or {}).items():
-        *parents, leaf = path.split(".")
-        node = cfg.xrdslam
-        for p in parents:
-            node = getattr(node, p)
-        setattr(node, leaf, value)
+    set_overrides(cfg, overrides)
     t_setup = time.time()
     runner = cfg.setup()
     pipeline = runner.setup()
@@ -4055,6 +4097,403 @@ def neuralrecon_runs(office: str) -> tuple:
 T0 = time.perf_counter()
 
 
+# ---------------------------------------------------------------------------
+# resume and the file loaders: co-slam@replica-resume, --resume-segment,
+# --resume-all
+# ---------------------------------------------------------------------------
+
+# co-slam@replica-resume: the office's first RESUME_FRAMES frames written in
+# Replica's layout and read back through get_dataset(..., "replica"); the
+# registry's Co-SLAM (the packed hash, groups of 5 from frame 10) run whole
+# and in two segments, the first stopped at RESUME_STOP (between the groups
+# at 25 and 30) and the second resumed in a fresh process
+RESUME_FRAMES = 60
+RESUME_STOP = 30
+REPLICA_DEPTH_SCALE = 6553.5  # Replica's png_depth_scale
+REPLICA_JPEG_QUALITY = 95
+# a JPEG at that quality against the frame it was written from (colour in
+# [0, 1]): the mean error and its 99.9th percentile allowed (at 600x340 the
+# office frames read ~0.003 and ~0.03, with single pixels at chroma edges
+# up to ~0.32)
+REPLICA_JPEG_MEAN_ERR = 0.01
+REPLICA_JPEG_P999_ERR = 0.1
+LOADER_FRAMES = 3  # frames of the CoFusion layout read back
+# --resume-all: (name, algorithm, frames, overrides, config, first segment's
+# stop) for the other six algorithms at the configurations the default run
+# takes; NeuralRecon's stops are found from its host gating
+# (``neuralrecon_stops``): inside its fragment and after it. Co-SLAM's exact
+# hash comes first, with no bit gate: K3's float atomics make two whole runs
+# differ in their last bits, so its line holds the resumed run's largest
+# pose difference beside that of a second whole run
+RESUME_EXACT = "co-slam@exact"
+RESUME_ALL = (
+    (RESUME_EXACT, "co-slam", COSLAM_FRAMES, {"algorithm.model.hash_packed": False,
+                                              "algorithm.max_keyframes": max(COSLAM_FRAMES // 5 + 2, 8)}, None, 30),
+    ("nice-slam@protocol", "nice-slam", NICESLAM_FRAMES, None, "niceslam_protocol", 30),
+    ("splaTAM@k512", "splaTAM", SPLATAM_FRAMES, SPLATAM_GATE, None, 10),
+    # groups at 30 (a key's warm-up and capture) and 35 (its first replay);
+    # the segment ends after the replay, before the keyframe group at 40
+    ("point-slam@groups", "point-slam", POINTSLAM_GROUP_FRAMES, None, None, 40),
+    ("vox-fusion@registry", "vox-fusion", VOXFUSION_FRAMES, None, None, 30),
+    ("dpvo@registry", "dpvo", DPVO_FRAMES, DPVO_REGISTRY, None, 20),
+    ("neuralrecon@registry", "neuralRecon", NEURALRECON_FRAMES, None, None, None),
+)
+
+
+def write_devices_yaml(path: str, camera, png_depth_scale: float) -> None:
+    cam = {"H": camera.height, "W": camera.width, "fx": camera.fx, "fy": camera.fy, "cx": camera.cx,
+           "cy": camera.cy, "png_depth_scale": png_depth_scale, "crop_edge": 0}
+    with open(path, "w") as f:
+        f.write("cam:\n" + "".join(f"  {k}: {float(v) if k not in ('H', 'W') else int(v)}\n" for k, v in cam.items()))
+
+
+def write_replica(ds, root: str) -> None:
+    """``ds``'s frames in Replica's layout: ``results/frame%06d.jpg``
+    (quality ``REPLICA_JPEG_QUALITY``), ``results/depth%06d.png`` (16 bits at
+    ``REPLICA_DEPTH_SCALE``), ``traj.txt`` (each pose with its y and z axes
+    flipped, which the loader undoes; float32 values written exactly)
+    and ``devices.yaml`` with the camera."""
+    from PIL import Image
+
+    from xrdslam_tpu_torch.common.datasets import _flip_yz
+
+    os.makedirs(os.path.join(root, "results"), exist_ok=True)
+    lines = []
+    for i in range(len(ds)):
+        _, rgb, depth, c2w = ds[i]
+        Image.fromarray((np.clip(rgb, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)).save(
+            os.path.join(root, "results", f"frame{i:06d}.jpg"), quality=REPLICA_JPEG_QUALITY)
+        Image.fromarray(np.round(depth * REPLICA_DEPTH_SCALE).astype(np.uint16)).save(
+            os.path.join(root, "results", f"depth{i:06d}.png"))
+        lines.append(" ".join(repr(float(x)) for x in _flip_yz(np.asarray(c2w, np.float32)).ravel()))
+    with open(os.path.join(root, "traj.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    write_devices_yaml(os.path.join(root, "devices.yaml"), ds.get_camera(), REPLICA_DEPTH_SCALE)
+
+
+def write_cofusion(ds, root: str, n: int) -> dict:
+    """``ds``'s first ``n`` frames in CoFusion's layout: ``colour/*.png`` and
+    EXR depth in metres (``depth_noise/*.exr``, the port's ``write_exr``),
+    ``devices.yaml`` at a depth scale of 1. Returns what was written."""
+    from PIL import Image
+
+    from xrdslam_tpu_torch.utils.exr import write_exr
+
+    for sub in ("colour", "depth_noise"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    written = {"rgb": [], "depth": []}
+    for i in range(n):
+        _, rgb, depth, _ = ds[i]
+        rgb8 = (np.clip(rgb, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        Image.fromarray(rgb8).save(os.path.join(root, "colour", f"Color{i:04d}.png"))
+        write_exr(os.path.join(root, "depth_noise", f"Depth{i:04d}.exr"), {"Z": np.asarray(depth, np.float32)})
+        written["rgb"].append(rgb8)
+        written["depth"].append(np.asarray(depth, np.float32))
+    write_devices_yaml(os.path.join(root, "devices.yaml"), ds.get_camera(), 1.0)
+    return written
+
+
+def check_loaders(ds, replica: str, cofusion: str, written: dict) -> None:
+    """Read both layouts back through ``get_dataset`` on this machine and
+    hold them to the frames written: the camera; Replica's depth and poses
+    exactly, its colour within the JPEG's error; CoFusion's colour and EXR
+    depth exactly, identity poses. ``[loader]`` says which YAML and PIL
+    read them."""
+    import PIL
+    import yaml
+
+    from xrdslam_tpu_torch.common.datasets import get_dataset
+
+    t0 = time.perf_counter()
+    cam = vars(ds.get_camera())
+    rep = {"yaml": yaml.__version__, "PIL": PIL.__version__}
+    rd = get_dataset(replica, "replica")
+    if len(rd) != len(ds) or vars(rd.get_camera()) != cam:
+        raise RuntimeError(f"replica loader: {len(rd)} frames, camera {vars(rd.get_camera())} against {cam}")
+    errs = []
+    for i in sorted({0, len(ds) // 2, len(ds) - 1}):
+        _, rgb, depth, c2w = ds[i]
+        _, rgb_r, depth_r, c2w_r = rd[i]
+        want_depth = np.round(depth * REPLICA_DEPTH_SCALE).astype(np.uint16).astype(np.float32) / REPLICA_DEPTH_SCALE
+        err = np.abs(rgb_r - rgb)
+        errs.append([float(err.mean()), float(np.percentile(err, 99.9)), float(err.max())])
+        if (not np.array_equal(depth_r, want_depth) or not np.array_equal(c2w_r, np.asarray(c2w, np.float32))
+                or errs[-1][0] > REPLICA_JPEG_MEAN_ERR or errs[-1][1] > REPLICA_JPEG_P999_ERR):
+            raise RuntimeError(f"replica loader, frame {i}: depth equal {np.array_equal(depth_r, want_depth)}, pose "
+                               f"equal {np.array_equal(c2w_r, np.asarray(c2w, np.float32))}, colour error mean / "
+                               f"99.9th percentile / max {errs[-1]}")
+    rep["replica_frames"], rep["replica_jpeg_err_mean_p999_max"] = len(rd), errs
+    cd = get_dataset(cofusion, "cofusion")
+    if len(cd) != len(written["rgb"]) or vars(cd.get_camera()) != cam:
+        raise RuntimeError(f"cofusion loader: {len(cd)} frames, camera {vars(cd.get_camera())} against {cam}")
+    for i in range(len(cd)):
+        _, rgb_r, depth_r, c2w_r = cd[i]
+        if (not np.array_equal(rgb_r, written["rgb"][i].astype(np.float32) / 255.0)
+                or not np.array_equal(depth_r, written["depth"][i]) or not np.array_equal(c2w_r, np.eye(4))):
+            raise RuntimeError(f"cofusion loader, frame {i}: not the frame written")
+    rep["cofusion_frames"], rep["seconds"] = len(cd), time.perf_counter() - t0
+    print(f"[loader] {json.dumps(rep)}")
+
+
+def segment_pipeline(spec: dict):
+    """The runner's pipeline of a segment ``spec``: the registry's entry for
+    ``algorithm`` (or, with ``config`` "niceslam_protocol", the protocol's
+    NICE-SLAM over ``bounds``) with ``overrides``, on ``data`` of
+    ``data_type``, writing to ``out_dir``; on the card, no post-run sweep."""
+    from xrdslam_tpu_torch.configs.registry import algorithm_configs
+
+    if spec.get("config") == "niceslam_protocol":
+        cfg = niceslam_protocol_config(spec["bounds"])
+    else:
+        cfg = copy.deepcopy(algorithm_configs[spec["algorithm"]])
+    cfg.data, cfg.data_type, cfg.out_dir = spec["data"], spec["data_type"], spec["out_dir"]
+    cfg.xrdslam.device = "cuda"
+    cfg.xrdslam.tracker.save_re_render_result = False
+    set_overrides(cfg, spec.get("overrides"))
+    pipeline = cfg.setup().setup()
+    if spec["data_type"] == "synthetic":
+        # every segment's process traces its own frames, one at a time as the
+        # pipeline reads them, so that the whole run and the segments see
+        # the same bits (never another run's batched traces)
+        pipeline.dataset._shared = None
+    return pipeline
+
+
+def segment_run(spec: dict, how: str) -> dict:
+    """``spec``'s pipeline run whole (``how`` "whole"), stopped at
+    ``spec["stop_at"]`` ("first") or resumed from the checkpoint in its
+    ``out_dir`` ("resume"), the launch counts zeroed just before and read
+    just after. Returns the record (wall, frames, launches, groups,
+    captures, the poses' digest, the checkpoint's MiB and its seconds to
+    write or to read) and writes the poses, and NeuralRecon's TSDF, to
+    ``out_dir``."""
+    import torch
+
+    from xrdslam_tpu_torch.pipeline import slam
+
+    pipeline = segment_pipeline(spec)
+    io_s = {}
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            io_s[key] = io_s.get(key, 0.0) + time.perf_counter() - t
+            return out
+
+        return call
+
+    shipped = slam.save_checkpoint, slam.load_checkpoint
+    slam.save_checkpoint = timed(shipped[0], "checkpoint_write_s")
+    slam.load_checkpoint = timed(shipped[1], "checkpoint_read_s")
+    try:
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        if how == "whole":
+            pipeline.run()
+        elif how == "first":
+            pipeline.run(stop_at=spec["stop_at"])
+        else:
+            pipeline.run(resume=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        slam.save_checkpoint, slam.load_checkpoint = shipped
+    algo = pipeline.algorithm
+    graphs = getattr(algo, "graphs", None)
+    rec = {"how": how, "wall_s": wall, "frames": len(algo.estimate_c2w_list),
+           "launches": {k: v for k, v in all_launches().items() if v},
+           "groups": pipeline.groups, "digest": trajectory_digest(pipeline), **io_s,
+           "captures": [] if graphs is None else [str(k) for k in graphs.captures]}
+    if how != "whole":
+        rec["checkpoint_mib"] = os.path.getsize(pipeline.ckpt_path) / 2**20
+    np.save(os.path.join(spec["out_dir"], f"poses_{how}.npy"), np.stack(algo.estimate_c2w_list))
+    if spec["algorithm"] == "neuralRecon" and how != "first":
+        np.save(os.path.join(spec["out_dir"], f"tsdf_{how}.npy"), algo.tsdf_vol.data)
+    return rec
+
+
+def write_spec(spec: dict) -> str:
+    os.makedirs(spec["out_dir"], exist_ok=True)
+    with open(os.path.join(spec["out_dir"], "spec.json"), "w") as f:
+        json.dump(spec, f)
+    return spec["out_dir"]
+
+
+def resume_segment(out_dir: str) -> None:
+    """``--resume-segment <dir>``: the segment of ``<dir>/spec.json`` in this
+    fresh process (``how`` "whole" or "resume"); its record to
+    ``<dir>/result.json``."""
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    rec = segment_run(spec, spec["how"])
+    with open(os.path.join(out_dir, "result.json"), "w") as f:
+        json.dump(rec, f)
+    print(f"[segment] {spec['name']} {spec['how']}: {json.dumps(rec)}")
+
+
+def resumed_runs(spec: dict, stops, bits: bool = True) -> list:
+    """``spec``'s run whole in a second process (``--resume-segment``),
+    and, beside it in this one, the run stopped at each of ``stops``, each
+    resumed in a fresh process of its own. One ``[resume]`` line a stop: the
+    digests, the largest pose difference (NeuralRecon's also the largest
+    TSDF difference), the checkpoint's MiB and seconds, the launches of the
+    segments and of the whole run. Raises unless the resumed run has the
+    whole run's bits and the segments' launches add up to the whole run's.
+    Without ``bits`` a second whole run goes beside the first, the line adds
+    the largest pose difference between the two (``max_pose_diff_whole_runs``)
+    and the bits are not gated; the poses must be finite. Returns the lines'
+    records."""
+    import torch
+
+    base = spec["out_dir"]
+    whole_dir = write_spec(dict(spec, out_dir=os.path.join(base, "whole"), how="whole"))
+    whole_child = start_child(["--resume-segment", whole_dir])
+    if not bits:
+        again_dir = write_spec(dict(spec, out_dir=os.path.join(base, "whole_again"), how="whole"))
+        again_child = start_child(["--resume-segment", again_dir])
+    firsts = []
+    for stop in stops:
+        seg = dict(spec, out_dir=os.path.join(base, f"stop{stop}"), stop_at=stop, how="resume")
+        write_spec(seg)
+        first = segment_run(seg, "first")
+        torch.cuda.empty_cache()
+        join_child(start_child(["--resume-segment", seg["out_dir"]]), f"{spec['name']} resumed at {stop}")
+        with open(os.path.join(seg["out_dir"], "result.json")) as f:
+            firsts.append((stop, seg["out_dir"], first, json.load(f)))
+    join_child(whole_child, f"{spec['name']} whole")
+    with open(os.path.join(whole_dir, "result.json")) as f:
+        whole = json.load(f)
+    want = np.load(os.path.join(whole_dir, "poses_whole.npy"))
+    if not bits:
+        join_child(again_child, f"{spec['name']} whole, again")
+        again = np.load(os.path.join(again_dir, "poses_whole.npy"))
+    records = []
+    for stop, seg_dir, first, resumed in firsts:
+        got = np.load(os.path.join(seg_dir, "poses_resume.npy"))
+        rec = {"run": spec["name"], "stop_at": stop, "frames": whole["frames"],
+               "digest_whole": whole["digest"], "digest_resumed": resumed["digest"],
+               "max_pose_diff": float(np.abs(got - want).max()) if got.shape == want.shape else None,
+               "checkpoint_mib": first["checkpoint_mib"], "checkpoint_write_s": first.get("checkpoint_write_s"),
+               "checkpoint_read_s": resumed.get("checkpoint_read_s"),
+               "wall_s": {"whole": whole["wall_s"], "first": first["wall_s"], "resumed": resumed["wall_s"]},
+               "groups": {"first": first["groups"], "resumed": resumed["groups"]},
+               "launches": {"whole": whole["launches"], "first": first["launches"], "resumed": resumed["launches"]}}
+        same = got.shape == want.shape and np.array_equal(got, want) and whole["digest"] == resumed["digest"]
+        if spec["algorithm"] == "neuralRecon":
+            t_got, t_want = (np.load(os.path.join(d, f"tsdf_{h}.npy")) for d, h in ((seg_dir, "resume"),
+                                                                                     (whole_dir, "whole")))
+            rec["max_tsdf_diff"] = float(np.abs(t_got - t_want).max()) if t_got.shape == t_want.shape else None
+            same = same and t_got.shape == t_want.shape and np.array_equal(t_got, t_want)
+        rec["same_bits"] = bool(same)
+        if not bits:
+            rec["max_pose_diff_whole_runs"] = float(np.abs(again - want).max()) if again.shape == want.shape else None
+        summed = {k: first["launches"].get(k, 0) + resumed["launches"].get(k, 0)
+                  for k in set(first["launches"]) | set(resumed["launches"])}
+        rec["launches_add_up"] = summed == whole["launches"]
+        print(f"[resume] {json.dumps(rec)}")
+        if bits and not same:
+            raise RuntimeError(f"{spec['name']} resumed at frame {stop}: not the uninterrupted run's bits")
+        if not bits and (got.shape != want.shape or not np.isfinite(got).all()):
+            raise RuntimeError(f"{spec['name']} resumed at frame {stop}: {got.shape} poses, finite "
+                               f"{bool(np.isfinite(got).all())}, against the whole run's {want.shape}")
+        if not rec["launches_add_up"]:
+            raise RuntimeError(f"{spec['name']} resumed at frame {stop}: the segments' launches {summed} are not "
+                               f"the whole run's {whole['launches']}")
+        records.append(rec)
+    return records
+
+
+def coslam_replica_resume(office_ds, bounds) -> None:
+    """The default run's ``co-slam@replica-resume`` and loader phase (see
+    RESUME_FRAMES): the frames written in Replica's and CoFusion's layouts
+    and read back (``check_loaders``); the registry's Co-SLAM from the
+    Replica files whole and stopped at RESUME_STOP, then resumed in a fresh
+    process (``resumed_runs``): the resumed trajectory must equal the
+    uninterrupted one bit for bit, K4's launches of the two segments must
+    add up to the whole run's and to ``coslam_scatter_schedule``'s, and the
+    ATE must pass the gate of the other Co-SLAM runs."""
+    from xrdslam_tpu_torch.common.datasets import get_dataset
+    from xrdslam_tpu_torch.configs.registry import algorithm_configs
+    from xrdslam_tpu_torch.utils.eval_ate import evaluate_ate
+
+    t0 = time.perf_counter()
+    base = os.path.join(ROOT, "build", "chip_smoke_resume")
+    replica, cofusion = os.path.join(base, "replica"), os.path.join(base, "cofusion")
+    write_replica(office_ds, replica)
+    written = write_cofusion(office_ds, cofusion, LOADER_FRAMES)
+    t_write = time.perf_counter() - t0
+    check_loaders(office_ds, replica, cofusion, written)
+    spec = {"name": "co-slam@replica-resume", "algorithm": "co-slam", "data": replica, "data_type": "replica",
+            "out_dir": os.path.join(base, "co-slam"),
+            "overrides": {"algorithm.mapping_bound": bounds,
+                          "algorithm.max_keyframes": max(RESUME_FRAMES // 5 + 2, 8)}}
+    rec, = resumed_runs(spec, [RESUME_STOP])
+    k4 = {k: rec["launches"][k].get("scatter_add", 0) for k in ("whole", "first", "resumed")}
+    want = coslam_scatter_schedule(algorithm_configs["co-slam"], RESUME_FRAMES, "packed")
+    gt = [np.asarray(p, np.float32) for p in get_dataset(replica, "replica").poses]
+    est = list(np.load(os.path.join(spec["out_dir"], f"stop{RESUME_STOP}", "poses_resume.npy")))
+    ate_cm = evaluate_ate(gt, est)["rmse"] * 100.0
+    frozen_cm = evaluate_ate(gt, [gt[0]] * len(gt))["rmse"] * 100.0
+    limit = min(ATE_LIMIT_CM, FROZEN_ATE_SHARE * frozen_cm)
+    out = {"k4": k4, "schedule": want, "ate_cm": ate_cm, "ate_limit_cm": limit, "frozen_ate_cm": frozen_cm,
+           "write_layouts_s": t_write, "phase_s": time.perf_counter() - t0}
+    print(f"[gate] co-slam@replica-resume: {json.dumps(out)}")
+    if k4["whole"] != want:
+        raise RuntimeError(f"co-slam@replica-resume: K4 launches {k4} against the schedule's {want}")
+    if not ate_cm <= limit:
+        raise RuntimeError(f"co-slam@replica-resume: ATE {ate_cm:.3f} cm > {limit:.3f} cm")
+
+
+def neuralrecon_stops(spec: dict) -> list:
+    """The two boundaries of NeuralRecon's resume: the frame of its first
+    fragment by the host gating over the dataset's poses (as its tracking
+    gives them), stopping there (inside the fragment: its first
+    ``mapping_window_size`` keyframes gathered) and one frame later (after
+    the fragment, between two)."""
+    from xrdslam_tpu_torch.algorithms.neural_recon import keyframe_passes
+    from xrdslam_tpu_torch.common.frame import Frame
+    from xrdslam_tpu_torch.common.synthetic import SyntheticDataset
+    from xrdslam_tpu_torch.configs.registry import algorithm_configs
+
+    cfg = algorithm_configs["neuralRecon"].xrdslam.algorithm
+    pending = []
+    for i, c2w in enumerate(SyntheticDataset(spec["data"]).poses):
+        cv = np.asarray(c2w, np.float32).copy()
+        cv[:3, 1:3] *= -1
+        f = Frame(fid=i, rgb=None, depth=None, init_pose=cv, rot_rep="quat")
+        if not pending or keyframe_passes(pending[-1].get_pose(), f.get_pose(), cfg.min_angle, cfg.min_distance):
+            pending.append(f)
+        if len(pending) > cfg.mapping_window_size:
+            return [i, i + 1]
+    raise RuntimeError("neuralrecon@registry: the host gating gives no fragment")
+
+
+def resume_all(office: str) -> None:
+    """``--resume-all``: each of RESUME_ALL run whole and stopped, then
+    resumed in a fresh process (``resumed_runs``); raises unless every
+    resumed run but the exact hash's has its whole run's bits."""
+    import torch
+
+    bounds = office_bounds(office)
+    summary = []
+    for name, algorithm, frames, overrides, config, stop in RESUME_ALL:
+        if algorithm == "co-slam":
+            # the office's bound, as in the default run's Co-SLAM runs
+            overrides = {"algorithm.mapping_bound": bounds, **overrides}
+        spec = {"name": name, "algorithm": algorithm, "data": f"n_frames={frames},{office}",
+                "data_type": "synthetic", "out_dir": os.path.join(ROOT, "build", "chip_smoke_resume", name),
+                "overrides": overrides, "config": config, "bounds": bounds}
+        stops = neuralrecon_stops(spec) if algorithm == "neuralRecon" else [stop]
+        summary += [{k: r[k] for k in ("run", "stop_at", "same_bits", "max_pose_diff", "max_pose_diff_whole_runs",
+                                       "checkpoint_mib") if k in r}
+                    for r in resumed_runs(spec, stops, bits=name != RESUME_EXACT)]
+        stamp(f"{name} resumed")
+        torch.cuda.empty_cache()
+    print(f"[resume-all] {json.dumps(summary)}")
+
+
 def stamp(what: str) -> None:
     print(f"[elapsed] {what}: {time.perf_counter() - T0:.1f} s", flush=True)
 
@@ -4174,6 +4613,12 @@ def main(argv) -> None:
     if argv == ["--pointslam-groups"]:
         pointslam_groups_run(f"height={HEIGHT},width={WIDTH},scene=office")
         return
+    if argv[:1] == ["--resume-segment"] and len(argv) == 2:
+        resume_segment(argv[1])
+        return
+    if argv == ["--resume-all"]:
+        resume_all(f"height={HEIGHT},width={WIDTH},scene=office")
+        return
     if argv == ["--per-frame"]:
         office = f"height={HEIGHT},width={WIDTH},scene=office"
         niceslam_per_frame(office, office_bounds(office))
@@ -4262,6 +4707,11 @@ def main(argv) -> None:
     profile_coslam(pipeline, "co-slam@exact")
     stamp("co-slam@exact run and profile")
     del pipeline
+    torch.cuda.empty_cache()
+    # the file loaders and resume: the office written to disk, read back, and
+    # the registry's Co-SLAM run from there whole and in two processes
+    coslam_replica_resume(SyntheticDataset(f"n_frames={RESUME_FRAMES},{office}", device="cuda"), bounds)
+    stamp("co-slam@replica-resume and the loaders")
     torch.cuda.empty_cache()
     # Co-SLAM's main path: the registry's default, the packed hash (K4 as
     # its tables' gradient), and the accuracy protocol's tri-plane

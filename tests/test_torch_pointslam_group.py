@@ -178,7 +178,7 @@ def test_group_step_gives_the_per_frame_bits(n_kf, do_kf):
         assert torch.equal(a, b), "the state after the group differs from the per-frame steps'"
     for name, a in got_map.items():
         np.testing.assert_array_equal(a, getattr(algo.point_map, name), err_msg=name)
-    assert algo.point_map.n_points > saved[3].n_points  # the head added points
+    assert algo.point_map.n_points > saved[1]["point_map"]["n_points"]  # the head added points
 
 
 # ---------------------------------------------------------------------------

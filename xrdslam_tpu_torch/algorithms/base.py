@@ -4,12 +4,18 @@ Counterpart of ``xrdslam_tpu/algorithms/base.py`` without the multi-device
 helpers: the finite-gradient guard, the tracking lr schedule, the static
 mapping window (``window_slot_frame``, ``pad_window``, and on the device
 ``window_arrays``), the group steps' constant-velocity prediction
-(``predict_q``), the host bookkeeping (pose lists, keyframe ids) and the
+(``predict_q``), the host bookkeeping (pose lists, keyframe ids), the
 outputs' defaults for an algorithm without them (``render_img``,
-``get_mesh``, ``get_cloud``).
+``get_mesh``, ``get_cloud``) and the state's two pairs, the checkpoint's
+(``checkpoint_state`` / ``restore_state``, host copies) and the
+in-process copy's (``save_state`` / ``load_state``, device clones), both
+over one declaration: an algorithm's named device tensors
+(``_named_state``) and its host state (``host_state``: host attributes
+and generators).
 """
 from __future__ import annotations
 
+import copy
 import sys
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type
@@ -166,6 +172,83 @@ class Algorithm:
             self._on_nonfinite_pose(idx)
             return
         self.estimate_c2w_list[idx] = c2w
+
+    # -- state: checkpoints (engine/checkpoint.py) and in-process copies ----
+    # host attributes saved as they are, torch generators by their state and
+    # numpy generators by their bit generator's state
+    _host_state: Tuple[str, ...] = ()
+    _torch_generators: Tuple[str, ...] = ()
+    _numpy_generators: Tuple[str, ...] = ()
+    _BASE_HOST_STATE = ("initialized", "estimate_c2w_list", "gt_c2w_list", "gt_c2w_list_ori", "keyframe_fids",
+                        "_nonfinite_poses")
+
+    def _named_state(self) -> Dict[str, List[torch.Tensor]]:
+        """The device state tensors by name (the JAX package's attribute
+        names where the state is the same), in ``_state_tensors``' order."""
+        return {}
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        return [t for ts in self._named_state().values() for t in ts]
+
+    def host_state(self) -> Dict[str, Any]:
+        """Host copies of the state outside ``_named_state``: generators,
+        ``_host_state`` and the base's bookkeeping. Subclasses add what
+        their attribute names cannot say."""
+        d: Dict[str, Any] = {}
+        for name in self._torch_generators:
+            d[name] = getattr(self, name).get_state().numpy().copy()
+        for name in self._numpy_generators:
+            d[name] = copy.deepcopy(getattr(self, name).bit_generator.state)
+        for name in self._host_state + self._BASE_HOST_STATE:
+            d[name] = copy.deepcopy(getattr(self, name))
+        return d
+
+    def restore_host_state(self, d: Dict[str, Any]) -> None:
+        """Take back a ``host_state``, taking its entries out of ``d``."""
+        for name in self._torch_generators:
+            getattr(self, name).set_state(torch.from_numpy(d.pop(name)))
+        for name in self._numpy_generators:
+            getattr(self, name).bit_generator.state = d.pop(name)
+        for name in self._host_state + self._BASE_HOST_STATE:
+            setattr(self, name, d.pop(name))
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """Host copies of everything the next frame reads: numpy arrays and
+        plain Python values, no tensor."""
+        d: Dict[str, Any] = {k: [t.detach().to("cpu", copy=True).numpy() for t in ts]
+                             for k, ts in self._named_state().items()}
+        d.update(self.host_state())
+        return d
+
+    def restore_state(self, d: Dict[str, Any]) -> None:
+        """Take back a ``checkpoint_state``, taking its entries out of ``d``.
+        The device tensors are written in place; a tensor of another shape
+        or type raises ``ValueError``."""
+        with torch.no_grad():
+            for k, ts in self._named_state().items():
+                arrays = d.pop(k)
+                if len(arrays) != len(ts):
+                    raise ValueError(f"checkpoint entry {k!r} holds {len(arrays)} tensors, the algorithm {len(ts)}")
+                for t, a in zip(ts, arrays):
+                    src = torch.from_numpy(np.asarray(a))
+                    if src.shape != t.shape or src.dtype != t.dtype:
+                        raise ValueError(f"checkpoint entry {k!r}: {src.dtype} {tuple(src.shape)} does not fit "
+                                         f"{t.dtype} {tuple(t.shape)} (another configuration?)")
+                    t.copy_(src)
+        self.restore_host_state(d)
+
+    def save_state(self):
+        """An in-process copy of the state: device clones of the state
+        tensors and ``host_state()``."""
+        return [t.detach().clone() for t in self._state_tensors()], self.host_state()
+
+    def load_state(self, saved) -> None:
+        """Put back a ``save_state`` copy, the device tensors in place."""
+        tensors, host = saved
+        with torch.no_grad():
+            for dst, src in zip(self._state_tensors(), tensors):
+                dst.copy_(src)
+        self.restore_host_state(copy.deepcopy(host))
 
     def get_estimate_c2w_list(self) -> List[np.ndarray]:
         return self.estimate_c2w_list

@@ -329,27 +329,18 @@ class CoSLAM(Algorithm):
         pt, pr = handle[2].wait()
         return [lie_np.pose_vec_to_matrix(pt[j], pr[j], rot_rep="axis_angle") for j in range(pt.shape[0])]
 
-    def save_state(self):
-        """A copy of everything a group step changes on the device: the map
-        and its Adam state, the keyframe table, poses and count, and the
-        generator's state."""
-        return [t.detach().clone() for t in self._state_tensors()], self.generator.get_state()
+    _host_state = ("kf_count",)
+    _torch_generators = ("generator",)
 
-    def load_state(self, saved) -> None:
-        """Put back a ``save_state`` copy, in place."""
-        tensors, gen = saved
-        with torch.no_grad():
-            for dst, src in zip(self._state_tensors(), tensors):
-                dst.copy_(src)
-        self.generator.set_state(gen)
-
-    def _state_tensors(self) -> List[torch.Tensor]:
-        out = [p for ps in self.model.param_groups().values() for p in ps]
+    def _named_state(self) -> Dict[str, List[torch.Tensor]]:
+        opt = []
         for st in self.model_opt_state.values():
             for k in sorted(st):
                 v = st[k]
-                out.extend(v if isinstance(v, list) else [v])
-        return out + [self.kf_rays, self.kf_pose_t, self.kf_pose_r, self.kf_count_dev]
+                opt.extend(v if isinstance(v, list) else [v])
+        return {"model_params": [p for ps in self.model.param_groups().values() for p in ps],
+                "model_opt_state": opt, "kf_rays": [self.kf_rays], "kf_pose_t": [self.kf_pose_t],
+                "kf_pose_r": [self.kf_pose_r], "kf_count_dev": [self.kf_count_dev]}
 
     # ------------------------------------------------------------------
     # host API (called by the pipeline)

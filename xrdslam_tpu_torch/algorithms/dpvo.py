@@ -30,7 +30,7 @@ multi-device path of the reference is not ported.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple, Type
+from typing import Any, Dict, List, Optional, Tuple, Type
 
 import numpy as np
 import torch
@@ -455,6 +455,28 @@ class DPVO(Algorithm):
 
         poses = [np.linalg.inv(get(t)) for t in range(self.counter)]
         return np.stack(poses), np.asarray(self.tlist)
+
+    # -------------------------------------------------------- checkpoints
+    # the patch graph on the host: frames, poses, patches, edges, the
+    # skipped frames' delta chain and the counters
+    _host_state = ("n", "m", "counter", "tlist", "tstamps", "poses_t", "poses_q", "patches", "colors", "points",
+                   "delta", "ii", "jj", "kk", "n_updates", "n_probes", "buckets")
+    _numpy_generators = ("_rng",)
+
+    def _named_state(self) -> Dict[str, List[torch.Tensor]]:
+        """The feature rings, written in place."""
+        return {"imap_ring": [self.imap_ring], "gmap_ring": [self.gmap_ring], "fmap1_ring": [self.fmap1_ring],
+                "fmap2_ring": [self.fmap2_ring]}
+
+    def host_state(self) -> Dict[str, Any]:
+        """The base's and each edge's hidden state ``net``."""
+        d = super().host_state()
+        d["net"] = self.net.detach().to("cpu", copy=True).numpy()
+        return d
+
+    def restore_host_state(self, d: Dict[str, Any]) -> None:
+        super().restore_host_state(d)
+        self.net = torch.as_tensor(d.pop("net"), device=self.device)  # grows and shrinks with the edges
 
     # ---------------------------------------------------------- mapping --
     def do_mapping(self, cur_frame: Frame) -> None:  # VO only

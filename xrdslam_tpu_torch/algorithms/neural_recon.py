@@ -19,7 +19,7 @@ step is not ported.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple, Type
+from typing import Any, Dict, List, Optional, Tuple, Type
 
 import numpy as np
 import torch
@@ -268,6 +268,36 @@ class NeuralRecon(Algorithm):
         self.write_fragment(origin_vox, tsdf, occ, new_hiddens)
         self.fragment_id += 1
         self.frag_frames.clear()
+
+    # -------------------------------------------------------- checkpoints
+    _host_state = ("fragment_id",)
+
+    def host_state(self) -> Dict[str, Any]:
+        """The base's, the global volumes (each one's data and origin), the
+        keyframes of the fragment being gathered (the last one's pose gates
+        the next) and the last mesh."""
+        d = super().host_state()
+        vols = {"tsdf_vol": self.tsdf_vol, "occ_vol": self.occ_vol,
+                **{f"hidden_vols.{i}": v for i, v in enumerate(self.hidden_vols)}}
+        for k, v in vols.items():
+            d[k] = (None if v.data is None else v.data.copy(), v.origin.copy())
+        d["frag_frames"] = [(f.fid, f.rot_rep, f.rgb, f.depth, f.gt_pose, f.t, f.r) for f in self.frag_frames]
+        m = self.last_mesh
+        d["last_mesh"] = None if m is None else (m.vertices.copy(), m.faces.copy())
+        return d
+
+    def restore_host_state(self, d: Dict[str, Any]) -> None:
+        super().restore_host_state(d)
+        for k, v in [("tsdf_vol", self.tsdf_vol), ("occ_vol", self.occ_vol),
+                     *((f"hidden_vols.{i}", v) for i, v in enumerate(self.hidden_vols))]:
+            v.data, v.origin = d.pop(k)
+        self.frag_frames = []
+        for fid, rot_rep, rgb, depth, gt_pose, t, r in d.pop("frag_frames"):
+            f = Frame(fid=fid, rgb=rgb, depth=depth, gt_pose=gt_pose, rot_rep=rot_rep)
+            f.t, f.r = t, r
+            self.frag_frames.append(f)
+        m = d.pop("last_mesh")
+        self.last_mesh = None if m is None else Mesh(vertices=m[0], faces=m[1])
 
     # -------------------------------------------------------------- mesh
     def get_mesh(self) -> Optional[Mesh]:

@@ -427,28 +427,14 @@ class NiceSLAM(Algorithm):
                 print(f"[nice-slam] WARNING: clamped {n} non-finite mapped pose(s) back to inputs (total {total})",
                       file=sys.stderr, flush=True)
 
-    def save_state(self):
-        """A copy of everything a group step changes on the device (the
-        grids, the decoders, the keyframe table and poses), the generators'
-        states and the host's keyframe bookkeeping."""
-        return ([t.detach().clone() for t in self._state_tensors()], self.generator.get_state(),
-                self.rng.bit_generator.state, self.kf_count, list(self.keyframe_fids), self.kf_pose_host.copy(),
-                list(self._kf_slot_fifo))
+    _host_state = ("kf_count", "kf_pose_host", "_kf_slot_fifo", "_clamped_poses")
+    _torch_generators = ("generator",)
+    _numpy_generators = ("rng",)
 
-    def load_state(self, saved) -> None:
-        """Put back a ``save_state`` copy, in place."""
-        tensors, gen, rng, kf_count, fids, kf_host, fifo = saved
-        with torch.no_grad():
-            for dst, src in zip(self._state_tensors(), tensors):
-                dst.copy_(src)
-        self.generator.set_state(gen)
-        self.rng.bit_generator.state = rng
-        self.kf_count, self.keyframe_fids[:], self._kf_slot_fifo[:] = kf_count, fids, fifo
-        self.kf_pose_host[:] = kf_host
-
-    def _state_tensors(self) -> List[torch.Tensor]:
+    def _named_state(self) -> Dict[str, List[torch.Tensor]]:
         """The state tensors; the keyframe table and poses last."""
-        return [p for ps in self.model.param_groups().values() for p in ps] + [self.kf_images, self.kf_pose]
+        return {"model_params": [p for ps in self.model.param_groups().values() for p in ps],
+                "kf_images": [self.kf_images], "kf_pose": [self.kf_pose]}
 
     # ------------------------------------------------------------------
     # host API (called by the pipeline)

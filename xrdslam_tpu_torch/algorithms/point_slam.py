@@ -413,30 +413,40 @@ class PointSLAM(Algorithm):
         pt, pq = handle[2].wait()
         return [lie_np.pose_vec_to_matrix(pt[j], pq[j], rot_rep="quat") for j in range(pt.shape[0])]
 
-    def save_state(self):
-        """A copy of everything a group step changes: the model's
-        parameters, the device map, the keyframe table and poses, the host
-        point map, the generators' states and the keyframe bookkeeping."""
-        return ([t.detach().clone() for t in self._state_tensors()], self.generator.get_state(),
-                self.rng.bit_generator.state, copy.deepcopy(self.point_map), self.kf_count, list(self.keyframe_fids))
+    _host_state = ("kf_count",)
+    _torch_generators = ("generator",)
+    _numpy_generators = ("rng",)
 
-    def load_state(self, saved) -> None:
-        """Put back a ``save_state`` copy, the device tensors in place."""
-        tensors, gen, rng, point_map, kf_count, fids = saved
-        with torch.no_grad():
-            for dst, src in zip(self._state_tensors(), tensors):
-                dst.copy_(src)
-        self.generator.set_state(gen)
-        self.rng.bit_generator.state = rng
-        self.point_map = copy.deepcopy(point_map)
-        self.maps["n_points"] = self.point_map.n_points
-        self.kf_count, self.keyframe_fids[:] = kf_count, fids
-
-    def _state_tensors(self) -> List[torch.Tensor]:
+    def _named_state(self) -> Dict[str, List[torch.Tensor]]:
         """The state tensors: the model's parameters, the device map's keys
         and rows, then the keyframe table and poses."""
-        return list(self.model.parameters()) + [self.maps["cell_keys"], self.maps["cell_data"], self.kf_images,
-                                                self.kf_pose]
+        return {"model_params": list(self.model.parameters()), "cell_keys": [self.maps["cell_keys"]],
+                "cell_data": [self.maps["cell_data"]], "kf_images": [self.kf_images], "kf_pose": [self.kf_pose]}
+
+    def host_state(self) -> Dict[str, Any]:
+        """The base's and the host point map (its arrays and counts)."""
+        d = super().host_state()
+        d["point_map"] = copy.deepcopy(vars(self.point_map))
+        return d
+
+    def restore_host_state(self, d: Dict[str, Any]) -> None:
+        super().restore_host_state(d)
+        self.point_map = PointMap.__new__(PointMap)
+        vars(self.point_map).update(d.pop("point_map"))
+        self.maps["n_points"] = self.point_map.n_points
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """The base's without the device map, which holds the host point
+        map's rows bit for bit."""
+        d = super().checkpoint_state()
+        del d["cell_keys"], d["cell_data"]
+        return d
+
+    def restore_state(self, d: Dict[str, Any]) -> None:
+        """The device map's keys and rows refilled, in place, from the host
+        point map."""
+        d["cell_keys"], d["cell_data"] = [d["point_map"]["cell_keys"]], [d["point_map"]["cell_data"]]
+        super().restore_state(d)
 
     # ------------------------------------------------------------------
     # host API (called by the pipeline)

@@ -42,9 +42,8 @@ table, ``dead``, the count and the keyframe store are updated in place.
 """
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
@@ -468,30 +467,31 @@ class SplaTAM(Algorithm):
             keyframe.set_pose(c2w)
         return [c2w]
 
-    def save_state(self):
-        """A copy of everything a step changes: the gaussian table, ``dead``,
-        the keyframe store, the count, the generators' states and the host's
-        keyframe lists."""
-        return ([t.detach().clone() for t in self._state_tensors()], self.generator.get_state(),
-                copy.deepcopy(self.rng.bit_generator.state), self.noise_generator.get_state(),
-                list(self.kf_frames), list(self.keyframe_fids))
+    _torch_generators = ("generator", "noise_generator")
+    _numpy_generators = ("rng",)
 
-    def load_state(self, saved) -> None:
-        """Put back a ``save_state`` copy, in place; the host count follows."""
-        tensors, gen, rng, noise, kf_frames, fids = saved
-        with torch.no_grad():
-            for dst, src in zip(self._state_tensors(), tensors):
-                dst.copy_(src)
-        self.generator.set_state(gen)
-        self.rng.bit_generator.state = copy.deepcopy(rng)
-        self.noise_generator.set_state(noise)
-        self.kf_frames[:], self.keyframe_fids[:] = kf_frames, fids
-        self.model.n_gauss = int(self.count_dev)
-
-    def _state_tensors(self) -> List[torch.Tensor]:
+    def _named_state(self) -> Dict[str, List[torch.Tensor]]:
         """The state tensors; the keyframe store and the count last."""
-        return [self.params[g] for g in GAUSS_GROUPS] + [self.dead, self.kf_rgb, self.kf_depth, self.kf_w2c,
-                                                         self.count_dev]
+        return {"params": [self.params[g] for g in GAUSS_GROUPS], "dead": [self.dead], "kf_rgb": [self.kf_rgb],
+                "kf_depth": [self.kf_depth], "kf_w2c": [self.kf_w2c], "count_dev": [self.count_dev]}
+
+    def host_state(self) -> Dict[str, Any]:
+        """The base's, the model's host count and scene radius, and each
+        keyframe's id and pose (what the window's ranking reads of it)."""
+        d = super().host_state()
+        d["model_attrs"] = {"n_gauss": self.model.n_gauss, "scene_radius": self.model.scene_radius}
+        d["kf_frames"] = [(f.fid, f.rot_rep, f.t.copy(), f.r.copy()) for f in self.kf_frames]
+        return d
+
+    def restore_host_state(self, d: Dict[str, Any]) -> None:
+        super().restore_host_state(d)
+        for k, v in d.pop("model_attrs").items():
+            setattr(self.model, k, v)
+        self.kf_frames = []
+        for fid, rot_rep, t, r in d.pop("kf_frames"):
+            f = Frame(fid=fid, rgb=None, depth=None, rot_rep=rot_rep)
+            f.t, f.r = t, r
+            self.kf_frames.append(f)
 
     # ------------------------------------------------------------------
     # host API (called by the pipeline)

@@ -39,7 +39,6 @@ feed both packages the same pixels.
 """
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
 
@@ -301,31 +300,20 @@ class VoxFusion(Algorithm):
         pt, pr = handle[2].wait()
         return [lie_np.pose_vec_to_matrix(pt[0], pr[0], rot_rep="axis_angle")]
 
-    def save_state(self):
-        """A copy of everything a step changes (the map and its Adam state,
-        the voxel tables, the keyframe store), the generators' states and
-        the host's keyframe bookkeeping."""
-        return ([t.detach().clone() for t in self._state_tensors()], self.generator.get_state(),
-                copy.deepcopy(self.rng.bit_generator.state), self.kf_count, list(self.keyframe_fids))
+    _host_state = ("kf_count",)
+    _torch_generators = ("generator",)
+    _numpy_generators = ("rng",)
 
-    def load_state(self, saved) -> None:
-        """Put back a ``save_state`` copy, in place."""
-        tensors, gen, rng, kf_count, fids = saved
-        with torch.no_grad():
-            for dst, src in zip(self._state_tensors(), tensors):
-                dst.copy_(src)
-        self.generator.set_state(gen)
-        self.rng.bit_generator.state = copy.deepcopy(rng)
-        self.kf_count, self.keyframe_fids[:] = kf_count, fids
-
-    def _state_tensors(self) -> List[torch.Tensor]:
+    def _named_state(self) -> Dict[str, List[torch.Tensor]]:
         """The state tensors; the keyframe store last."""
-        out = [p for ps in self.model.param_groups().values() for p in ps]
+        opt = []
         for st in self.model_opt_state.values():
             for k in sorted(st):
                 v = st[k]
-                out.extend(v if isinstance(v, list) else [v])
-        return out + [self.maps[k] for k in sorted(self.maps)] + [self.kf_images, self.kf_pose]
+                opt.extend(v if isinstance(v, list) else [v])
+        return {"model_params": [p for ps in self.model.param_groups().values() for p in ps],
+                "model_opt_state": opt, "maps": [self.maps[k] for k in sorted(self.maps)],
+                "kf_images": [self.kf_images], "kf_pose": [self.kf_pose]}
 
     # ------------------------------------------------------------------
     # host API (called by the pipeline)

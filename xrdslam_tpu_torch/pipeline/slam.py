@@ -12,8 +12,18 @@ mesh and its culled evaluation copy (``mesh/final_mesh.ply``,
 ``mesh/final_mesh_rec.ply``). Debug panels go to ``imgs/`` where PIL is
 installed; where it is not, the run says so once and ``eval_2d.json``
 records it. ``profile_trace_frames`` "A-B" records frames [A, B) with
-``torch.profiler`` into ``<out_dir>/torch_trace``. Checkpoints and the
-visualizer come later.
+``torch.profiler`` into ``<out_dir>/torch_trace``. The visualizer comes
+later.
+
+A run can be cut into segments, each in a process of its own:
+``run(stop_at=k)`` ends after frame k - 1 and writes ``checkpoint.pkl`` to
+the output directory instead of the outputs, and ``run(resume=True)`` in a
+freshly built pipeline restores it and goes on at the next frame
+(``engine/checkpoint.py``). ``tracker.checkpoint_every`` N writes the
+checkpoint every N frames as the run goes (on the group path, after the
+group that holds such a frame), and after the last frame. The checkpoint
+carries the device poses that seed the next group, so a resumed run gives
+the uninterrupted run's bits.
 
 The group path is the reference package's: where the algorithm has a
 group step (Co-SLAM's ``dispatch_superstep``), each ``map_every``-frame
@@ -43,6 +53,7 @@ import torch
 from ..algorithms.base import Algorithm
 from ..common.frame import Frame
 from ..configs.base import InstantiateConfig
+from ..engine.checkpoint import load_checkpoint, save_checkpoint
 from ..engine.profiling import phase_timer, reset_timers, timing_summary, torch_trace
 from ..utils.io import colorize_depth, save_image
 
@@ -76,6 +87,7 @@ class TrackerConfig(InstantiateConfig):
     save_debug_result: bool = False  # a debug panel every render_freq-th frame (and the last)
     save_re_render_result: bool = True  # the post-run sweep: eval_2d.json and the final meshes
     init_pose_offset: float = 0.0  # added to the first pose's translation in relative-pose mode
+    checkpoint_every: int = -1  # write a resumable checkpoint every N frames (-1: never)
 
 
 @dataclass
@@ -161,11 +173,15 @@ class SLAMPipeline:
         tmp = Frame(fid=i, rgb=rgb, depth=depth)
         self._pending[i] = (rgb, depth, gt, tmp.rgb_dev(self.device), tmp.depth_dev(self.device))
 
-    def run(self) -> None:
+    def run(self, resume: bool = False, stop_at: Optional[int] = None) -> None:
         """Every frame, then the run's outputs. The phase timers restart
         with the run, so that ``timings.json`` holds this run's phases (each
         phase ends with its pose on the host, so a phase's time includes its
-        device work)."""
+        device work). With ``resume``, the run starts after the frame of
+        ``checkpoint.pkl`` in the output directory, where there is one. With
+        ``stop_at`` below the sequence's length, the run ends after frame
+        ``stop_at - 1`` (or after the group that holds it) and writes the
+        checkpoint in place of the outputs."""
         cfg_t = self.config.tracker
         algo = self.algorithm
         n = len(self.dataset)
@@ -174,6 +190,20 @@ class SLAMPipeline:
         self._pending: Dict[int, tuple] = {}
         self._pending_super = None
         self._last_group_done = None
+        self._dev_pose_hist: List[tuple] = []  # the last two (t, r) device pose vectors
+        self.groups: List[int] = []  # the head of each group dispatched
+        start = 0
+        if resume and os.path.exists(self.ckpt_path):
+            idx, extra = load_checkpoint(self.ckpt_path, algo, want_extra=True)
+            start = idx + 1
+            if extra.get("first_pose_old") is not None:
+                self._first_pose_old = np.asarray(extra["first_pose_old"])
+                self._first_pose_new = np.asarray(extra["first_pose_new"])
+            self.frame_times = list(extra.get("frame_times", []))
+            self.groups = list(extra.get("groups", []))
+            self._dev_pose_hist = [tuple(torch.as_tensor(v, device=self.device) for v in tr)
+                                   for tr in extra.get("dev_pose_hist", [])]
+            print(f"[slam] resumed from {self.ckpt_path} at frame {start}", flush=True)
         # the group path: one device program per map_every frames (track the
         # head, map it, keyframe, track the rest), one pose fetch per group.
         # The warm-up frames, the lazy-start region, the last group (the
@@ -186,15 +216,14 @@ class SLAMPipeline:
             and self.config.mapper.keyframe_every % group == 0
             and os.environ.get("XRDSLAM_DISABLE_SUPER", "0") != "1"  # A/B hatch
         )
-        self._dev_pose_hist: List[tuple] = []  # the last two (t, r) device pose vectors
-        self.groups: List[int] = []  # the head of each group dispatched
         trace_lo = trace_hi = -1
         if self.config.profile_trace_frames:
             lo, _, hi = self.config.profile_trace_frames.partition("-")
             trace_lo, trace_hi = int(lo), int(hi or (int(lo) + 1))
         self._trace: Optional[contextlib.ExitStack] = None
-        i = 0
-        while i < n:
+        end = n if stop_at is None else max(min(int(stop_at), n), start)
+        i = start
+        while i < end:
             if trace_lo <= i < trace_hi and self._trace is None:
                 self._trace = contextlib.ExitStack()
                 self._trace.enter_context(torch_trace(self.trace_dir))
@@ -219,11 +248,35 @@ class SLAMPipeline:
                 i += 1
         self._flush_super()
         self._stop_trace()
+        if end < n:
+            # a segment's end: the whole state, the pipeline's included, in
+            # place of the outputs
+            save_checkpoint(self.ckpt_path, algo, i - 1, extra=self._ckpt_extra())
+            print(f"[slam] segment checkpoint at frame {i - 1} -> {self.ckpt_path}", flush=True)
+            return
         self._finish_run()
 
     @property
     def trace_dir(self) -> str:
         return os.path.join(self.out_dir, "torch_trace")
+
+    @property
+    def ckpt_path(self) -> str:
+        return os.path.join(self.out_dir, "checkpoint.pkl")
+
+    def _ckpt_extra(self) -> dict:
+        """What a resume in another process needs of the pipeline: the
+        relative-pose anchors, the frame times, the group heads and the last
+        two device pose vectors (float32), which seed the next group as they
+        would have in one process."""
+        return {
+            "first_pose_old": self._first_pose_old,
+            "first_pose_new": self._first_pose_new,
+            "frame_times": list(self.frame_times),
+            "groups": list(self.groups),
+            "dev_pose_hist": [tuple(v.detach().to("cpu", copy=True).numpy() for v in tr)
+                              for tr in self._dev_pose_hist],
+        }
 
     def _stop_trace(self) -> None:
         if self._trace is not None:
@@ -269,6 +322,10 @@ class SLAMPipeline:
         self._pending_super = (gts, handle, t0)
         if prev_pending is not None:
             self._finish_group(prev_pending)
+        every = self.config.tracker.checkpoint_every
+        if every > 0 and any((i + j) % every == 0 for j in range(group)):
+            self._flush_super()  # the checkpoint needs every pose on the host
+            save_checkpoint(self.ckpt_path, algo, i + group - 1, extra=self._ckpt_extra())
         if self.verbose and (i // group) % 4 == 0 and self.frame_times:
             fps = 1.0 / max(np.mean(self.frame_times[-20:]), 1e-9)
             print(f"[slam] frame {i}/{n}  {fps:.2f} fps", flush=True)
@@ -332,6 +389,9 @@ class SLAMPipeline:
         if (cfg_t.save_debug_result and algo.is_initialized() and cfg_t.render_freq > 0
                 and (i % cfg_t.render_freq == 0 or frame.is_final_frame)):
             self.save_debug_results(i, rgb, depth, frame.get_pose())
+
+        if cfg_t.checkpoint_every > 0 and (i % cfg_t.checkpoint_every == 0 or frame.is_final_frame):
+            save_checkpoint(self.ckpt_path, algo, i, extra=self._ckpt_extra())
 
         if self.verbose and (i % 20 == 0 or frame.is_final_frame):
             fps = 1.0 / max(np.mean(self.frame_times[-20:]), 1e-9)
